@@ -5,26 +5,40 @@
 Phases, each of which raises on failure (the script then exits nonzero):
 
   1. The card's name and power limit (nvidia-smi) and torch's device name.
-  2. Builds the three CUDA kernels (nvcc, sm_90a) and the host entropy
-     coder (g++) from the checkout's sources, all compilers at once.
+  2. Builds the four CUDA kernels (nvcc, sm_90a) and the host library
+     (entropy coder and YUV importer, g++) from the checkout's sources, all
+     compilers at once.
   3. The main path, counted: webp_tpu_torch.encode_batch on B=16 synthetic
      1536x1024 images (made from --seed), with every kernel's launch count
-     set to 0 just before and read just after; each kernel must have run.
-     Every output must carry a RIFF/WEBP/VP8 header of the right size.
+     set to 0 just before and read just after; each kernel must have run
+     exactly once (one batch). Every output must carry a RIFF/WEBP/VP8
+     header of the right size.
   4. Each kernel at the main path's shapes (its inputs recorded during the
      counted run) against its plain PyTorch version on the same card
-     tensors: decisions and alphas exact, f32 scores within rtol 3e-7.
-     Median kernel time (CUDA events), plain-version time and the bound.
+     tensors: decisions, alphas and every phase-2 output exact, f32 scores
+     within rtol 3e-7. Median kernel time (CUDA events), plain-version time
+     (one run of the phase-2 step loop, which takes seconds) and the bound
+     with its basis; the phase-2 kernel's launch alone, without its
+     escape-list compaction, per anti-diagonal step.
   5. Throughput: end to end (numpy images in, WebP bytes out) and
-     device-compute only (.rgbp_blob with the planes resident), and the
-     device time per stage.
+     device-compute only (.rgbp_blob with the planes resident), encode_batch
+     split into its device round trip and its host tail, the device time
+     per stage and the phase-2 kernel's time per anti-diagonal step.
   6. On-card parity: small images encoded with device="cpu" (the plain
-     versions) and device="cuda" must give byte-identical files,
-     including a q99 noise image that takes the escape-overflow fallback.
+     versions) and device="cuda" must give byte-identical files, on 64x48,
+     72x40, a one-MB column (16x64), a one-MB row (64x16), the stream with
+     host YUV (its launches counted: each kernel once per batch), and a
+     q99 noise image that takes the escape-overflow fallback.
+  7. The pipelined stream: encode_lossy_stream over 32 images at 1536x1024
+     in batches of 16, its Mpx/s beside encode_batch's on the same images
+     (three runs each, alternating), its files equal to encode_batch's,
+     and the launches of its first run counted: each kernel once per
+     batch.
 
 The line before the last is a JSON object {"kernels": [...]} with each
-kernel's route, source, the TPU kernel it replaces, launches, error,
-times and bound; the last line is {"ok": true, "device": {...}}.
+kernel's route, source, the TPU kernel it replaces, launches on the main
+path and in the stream (stream_launches), error, times and bound; the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -57,7 +71,9 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # shifts, compares, selects, table reads), counted from the kernels'
 # arithmetic: a 4x4 forward DCT 160, inverse DCT 144, 4x4 WHT 80, the
 # weighted Hadamard texture measure 112, quantize + dequantize + error +
-# rate walk 20 per coefficient, reconstruct-and-clamp 48 per block.
+# rate walk 20 per coefficient (12 without the rate walk and error),
+# reconstruct-and-clamp 48 per block, nibble and level pack 4 per
+# coefficient.
 # Hopper's three-input add, three-input logic op and integer
 # multiply-add each retire up to two counted operations in one issue, so
 # this bound is an estimate a kernel can approach closely, not a wall.
@@ -87,10 +103,32 @@ def _ops_i4_per_sb(use_td):
     return 10 * per_mode + 110 + (_HAD if use_td else 0)
 
 
+def _ops_p2(n_i16, n_i4, n_mb):
+    """Phase 2, counting the chosen luma pipeline of each MB only (the
+    kernel runs just that one): per 4x4 block predict 16, residual 16, the
+    DCT pair, quantize + dequantize, reconstruct, pack; an I16 MB adds its
+    contour sums, the WHT pair and the y2 quantization, an I4 subblock its
+    contour's smoothed strips (110, as _ops_i4_per_sb); chroma is 8 blocks
+    and its contour sums for every MB."""
+    blk = 16 + 16 + _FDCT + 16 * 12 + _IDCT + _REC + 16 * 4
+    i16 = 16 * blk + 32 + 2 * _WHT + 16 * 12
+    i4 = 16 * (blk + 110)
+    return n_i16 * i16 + n_i4 * i4 + n_mb * (8 * blk + 32)
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations")
+
+
+def check_per_batch(launches, n_batches, what):
+    """Every kernel of the path must have launched once per batch."""
+    if set(launches.values()) != {n_batches}:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{n_batches} of each (one per batch)")
+    print(f"{what}: launches {launches}, one per batch of {n_batches}",
+          flush=True)
 
 
 def card_info():
@@ -181,12 +219,17 @@ def once(fn):
     return out, time.perf_counter() - t0
 
 
-def hold(name, kernel, plain, args, replaces, launches, n_bytes, n_ops):
+def _outputs(x):
+    return list(x.values()) if isinstance(x, dict) else list(x)
+
+
+def hold(name, kernel, plain, args, replaces, launches, n_bytes, n_ops,
+         plain_reps=3):
     """Runs a kernel wrapper and its plain version on the same card
-    tensors: integer outputs (modes, alphas) must be equal, float outputs
-    (scores) within SCORE_RTOL. Times both and returns the kernel's
-    record; "mismatches" counts the outputs that disagree."""
-    got, ref = kernel(*args), plain(*args)
+    tensors: integer outputs (modes, alphas, levels) must be equal, float
+    outputs (scores) within SCORE_RTOL. Times both and returns the
+    kernel's record; "mismatches" counts the outputs that disagree."""
+    got, ref = _outputs(kernel(*args)), _outputs(plain(*args))
     mismatches = sum(
         not torch.allclose(g, r, rtol=SCORE_RTOL, atol=0)
         if g.is_floating_point() else not torch.equal(g, r)
@@ -194,12 +237,13 @@ def hold(name, kernel, plain, args, replaces, launches, n_bytes, n_ops):
     err = max(float((g.double() - r.double()).abs().max())
               for g, r in zip(got, ref))
     ms = time_ms(lambda: kernel(*args), 20)
-    plain_ms = time_ms(lambda: plain(*args), 3)
+    plain_ms = time_ms(lambda: plain(*args), plain_reps)
     bd, by = bound_ms(n_bytes, n_ops)
     print(f"kernel {name}: {launches[name]} launch(es) on the main path; "
           f"{'exact' if not mismatches else 'DISAGREES'} (max abs err "
           f"{err}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd:.3f} ms "
-          f"by {by}", flush=True)
+          f"by {by} ({n_bytes} bytes, {n_ops} integer operations)",
+          flush=True)
     return dict(name=name, route="cuda",
                 source=f"webp_tpu_torch/csrc/{name}.cu", replaces=replaces,
                 launches=launches[name], max_abs_err=err, ms=ms,
@@ -238,17 +282,20 @@ def main(argv=None):
         return 2
     import webp_tpu_torch
     from webp_tpu_torch import _build
+    from webp_tpu_torch.container import riff
     from webp_tpu_torch.lossy import device_encode as DE
     from webp_tpu_torch.ops import cuda as KC
     from webp_tpu_torch.ops import fastpath as FP
     from webp_tpu_torch.ops import i4_kernel as I4K
     from webp_tpu_torch.ops import p1_kernels as P1K
+    from webp_tpu_torch.ops import p2_kernel as P2K
     from webp_tpu_torch.ops import yuv as YUV
 
     dev = torch.device("cuda")
     # 1. The card.
     name = torch.cuda.get_device_name(0)
-    print(card_info(), flush=True)
+    card = card_info()
+    print(card, flush=True)
     print(f"torch device: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
@@ -264,7 +311,8 @@ def main(argv=None):
     # 3. The main path, counted; the kernels' card inputs are recorded.
     with Recorder(P1K, "alphas") as r_alpha, \
             Recorder(P1K, "mode_search") as r_mode, \
-            Recorder(I4K, "i4_scores") as r_i4:
+            Recorder(I4K, "i4_scores") as r_i4, \
+            Recorder(P2K, "phase2_pack") as r_p2:
         DE.FALLBACKS["images"] = 0
         KC.reset_launches()
         t0 = time.perf_counter()
@@ -275,9 +323,7 @@ def main(argv=None):
     print(f"main path: encode_batch B={B} {W}x{H} q{QUALITY} first call "
           f"{first_s:.2f} s; launches {launches}; escape-overflow "
           f"fallbacks {fallbacks}", flush=True)
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} did not run on the main path")
+    check_per_batch(launches, 1, "main path (encode_batch)")
     if len(files) != B:
         raise AssertionError(f"{len(files)} files for {B} images")
     for f in files:
@@ -288,14 +334,20 @@ def main(argv=None):
     # 4. Each kernel against its plain version at the main path's shapes.
     n_mb = (W // 16) * (H // 16)
     L, n_sb = B * n_mb, B * 16 * n_mb
+    steps = W // 16 + H // 16 - 1
     a_args = r_alpha.calls[0]
     m_args = r_mode.calls[0]
     i_args = r_i4.calls[0]
+    p_args = r_p2.calls[0]
 
     def in_bytes(args):
         return sum(a.numel() * a.element_size() for a in args
                    if isinstance(a, torch.Tensor))
 
+    n_i4 = int(p_args[5].sum())
+    # Out: nibbles 24 x 8, int16 levels 24 x 16, y2 16 x 2, bitmap 4 and
+    # skip 1 bytes per MB.
+    p2_out = L * (24 * 8 + 24 * 16 * 2 + 16 * 2 + 4 + 1)
     kernels = [
         hold("p1_alpha", P1K.alphas, P1K.alphas_plain, a_args,
              "webp_tpu/ops/pallas_p1.py:500", launches,
@@ -306,11 +358,20 @@ def main(argv=None):
         hold("i4_search", I4K.i4_scores, I4K.i4_scores_plain, i_args,
              "webp_tpu/ops/pallas_i4.py:72", launches,
              in_bytes(i_args) + 8 * n_sb, _ops_i4_per_sb(i_args[-1]) * n_sb),
+        hold("p2_wavefront", P2K.phase2_pack, P2K.phase2_pack_plain, p_args,
+             "webp_tpu/ops/pallas_p2.py:155", launches,
+             in_bytes(p_args) + p2_out, _ops_p2(L - n_i4, n_i4, L),
+             plain_reps=1),
     ]
     bad = [k["name"] for k in kernels if k.pop("mismatches")]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
+    # The phase-2 launch alone (no escape-list compaction), per step.
+    launch_ms = time_ms(lambda: P2K.wavefront(*p_args[:10]), 20)
+    print(f"kernel p2_wavefront: bare launch {launch_ms:.3f} ms, "
+          f"{launch_ms / steps:.4f} ms per anti-diagonal step "
+          f"({steps} steps); {n_i4} of {L} MBs are I4", flush=True)
 
     # 5. Throughput and where the device time goes.
     px = B * W * H
@@ -321,23 +382,32 @@ def main(argv=None):
     dev_s = wall_s(lambda: fn.rgbp_blob(planes), 2)
     print(f"throughput: end to end {px / e2e / 1e6:.2f} Mpx/s "
           f"({e2e:.3f} s per batch); device compute only (rgbp_blob, "
-          f"input resident) {px / dev_s / 1e6:.2f} Mpx/s ({dev_s:.3f} s)",
-          flush=True)
+          f"input resident) {px / dev_s / 1e6:.2f} Mpx/s ({dev_s:.3f} s); "
+          f"{card}", flush=True)
+    # encode_batch's two halves: the device round trip (RGB upload, device
+    # program, blob fetch and unpack) and the host tail on 8 threads.
+    (fn_b, host), blob_s = once(lambda: DE.device_blob(imgs, QUALITY))
+    cfg = DE.LossyConfig(quality=QUALITY, segments=4, sns_strength=50,
+                         filter_strength=60)
+    with DE.concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+        _, emit_s = once(lambda: DE._emit(host, imgs, fn_b, W, H, cfg, ex))
+    print(f"encode_batch split (s): device_blob {blob_s:.4f}, entropy "
+          f"coding and frame assembly on 8 threads {emit_s:.4f}", flush=True)
     stage = {}
     yuv, stage["yuv"] = once(lambda: YUV.rgb_planes_to_yuv420(
         planes[:, 0], planes[:, 1], planes[:, 2]))
     p1, stage["phase0_1_i4"] = once(lambda: fn.part1_batched(*yuv))
-    p2, stage["phase2_loop"] = once(lambda: fn.phase2(*yuv, p1))
-    _, stage["pack_blob"] = once(lambda: FP._blobify(fn.pack(*p2, p1)))
-    steps = W // 16 + H // 16 - 1
+    wire, stage["phase2_kernel"] = once(lambda: fn.phase2(*yuv, p1))
+    _, stage["pack_blob"] = once(lambda: FP._blobify(fn.pack(wire, p1)))
     print("device stages (s): " + ", ".join(
         f"{k} {v:.4f}" for k, v in stage.items())
-        + f"; phase-2 steps {steps}, {stage['phase2_loop'] / steps * 1e3:.2f}"
-        " ms per step", flush=True)
+        + f"; phase-2 steps {steps}, "
+        f"{stage['phase2_kernel'] / steps * 1e3:.4f} ms per step", flush=True)
 
     # 6. On-card parity with the plain versions, small images.
     rng_s = np.random.default_rng(args.seed + 1)
-    for (w, h, q) in ((64, 48, 75), (72, 40, 75)):
+    for (w, h, q) in ((64, 48, 75), (72, 40, 75), (16, 64, 75),
+                      (64, 16, 75)):
         small = list(synth_images(rng_s, 2, h, w))
         on_cpu = webp_tpu_torch.encode_batch(small, q, device="cpu")
         on_card = webp_tpu_torch.encode_batch(small, q, device="cuda")
@@ -345,6 +415,13 @@ def main(argv=None):
             raise AssertionError(f"{w}x{h}: card and CPU files differ")
         for f in on_card:
             check_webp(f, w, h)
+    small = list(synth_images(rng_s, 3, 40, 72))
+    KC.reset_launches()
+    on_card = DE.encode_lossy_stream(small, QUALITY, batch=2, host_yuv=True)
+    check_per_batch(dict(KC.LAUNCHES), 2, "host-YUV stream, 3 images 72x40")
+    if on_card != DE.encode_lossy_stream(small, QUALITY, batch=2,
+                                         host_yuv=True, device="cpu"):
+        raise AssertionError("stream with host YUV: card and CPU differ")
     noise = [np.random.default_rng(args.seed + 2).integers(
         0, 256, (96, 128, 3), np.uint8)]
     DE.FALLBACKS["images"] = 0
@@ -354,7 +431,45 @@ def main(argv=None):
     if on_card != webp_tpu_torch.encode_batch(noise, 99, device="cpu"):
         raise AssertionError("q99 noise: card and CPU files differ")
     print("parity: card == CPU plain versions, byte for byte, on 64x48, "
-          "72x40 and the q99 escape-overflow image", flush=True)
+          "72x40, 16x64, 64x16, the host-YUV stream (72x40) and the q99 "
+          "escape-overflow image", flush=True)
+
+    # 7. The pipelined stream against encode_batch on 32 images. Both are
+    # host-bound and host times vary from run to run, so they run in
+    # alternating order, three times each.
+    imgs32 = list(imgs) + list(synth_images(rng, B, H, W))
+    runs = {
+        "stream": lambda: [riff.assemble_riff([riff.Chunk(riff.VP8, b)])
+                           for b in DE.encode_lossy_stream(imgs32, QUALITY,
+                                                           batch=B)],
+        "batch": lambda: [f for i in range(0, len(imgs32), B)
+                          for f in webp_tpu_torch.encode_batch(
+                              imgs32[i:i + B], QUALITY)]}
+    px32 = len(imgs32) * W * H
+    rates, out = {"stream": [], "batch": []}, {}
+    for order in (("stream", "batch"), ("batch", "stream"),
+                  ("stream", "batch")):
+        for k in order:
+            counted = k == "stream" and not rates["stream"]
+            if counted:
+                KC.reset_launches()
+            out[k], s_ = once(runs[k])
+            if counted:
+                stream_launches = dict(KC.LAUNCHES)
+            rates[k].append(px32 / s_ / 1e6)
+    check_per_batch(stream_launches, len(imgs32) // B,
+                    f"encode_lossy_stream, {len(imgs32)} images")
+    for k in kernels:
+        k["stream_launches"] = stream_launches[k["name"]]
+    if out["stream"] != out["batch"]:
+        raise AssertionError("encode_lossy_stream and encode_batch differ")
+    print(f"stream: {len(imgs32)} images {W}x{H} batch {B}, Mpx/s in run "
+          f"order S B B S S B: encode_lossy_stream "
+          f"{', '.join(f'{r:.2f}' for r in rates['stream'])} (median "
+          f"{statistics.median(rates['stream']):.2f}); encode_batch "
+          f"{', '.join(f'{r:.2f}' for r in rates['batch'])} (median "
+          f"{statistics.median(rates['batch']):.2f}); files equal; {card}",
+          flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port on the card: each kernel against its plain version on the
-slice's inputs, and the card's files against the CPU run's, byte for
-byte. These tests import neither JAX nor the reference package, so they
+slice's inputs (kernel 4 also on random modes), and the card's files
+against the CPU run's, byte for byte. These tests import neither JAX nor the reference package, so they
 also run on a machine with a card and no JAX:
 
     python -m pytest --noconftest -m cuda -p no:cacheprovider tests/test_torch_cuda.py
@@ -34,6 +34,44 @@ def _images(n, h, w, seed):
     return out
 
 
+def p2_inputs(B, W, H, seed):
+    """Phase-2 inputs (numpy, the port's quant tables): source planes (a
+    ramp, a noisy half, flat and striped chroma), random modes, I4 split
+    and modes, segments and per-image quant rows."""
+    from webp_tpu_torch.ops import fastpath as FP
+
+    rng = np.random.default_rng(seed)
+    mb_w, mb_h = W // 16, H // 16
+    n_mb = mb_w * mb_h
+    y, x = np.mgrid[0:H, 0:W]
+    Y = np.broadcast_to((x * 3 + y * 2) % 256, (B, H, W)).copy()
+    Y[:, :, W // 2:] = rng.integers(0, 256, (B, H, W - W // 2))
+    U = rng.integers(100, 160, (B, H // 2, W // 2))
+    V = np.broadcast_to((x[::2, ::2] * 5) % 256, (B, H // 2, W // 2)).copy()
+    V[:, ::3] = rng.integers(0, 256, V[:, ::3].shape)
+    seg_q = rng.integers(10, 120, (B, 4))
+    tabs = FP.all_q_tables()[0]
+    seg_rows = {k: tabs[k][seg_q].astype(np.int32) for k in ("y1", "y2",
+                                                              "uv")}
+    return dict(
+        Y=Y.astype(np.uint8), U=U.astype(np.uint8), V=V.astype(np.uint8),
+        modes=rng.integers(0, 4, (B, n_mb)).astype(np.uint8),
+        uvmodes=rng.integers(0, 4, (B, n_mb)).astype(np.uint8),
+        is_i4=rng.random((B, n_mb)) < 0.5,
+        i4_modes=rng.integers(0, 10, (B, n_mb, 16)).astype(np.uint8),
+        seg_map=rng.integers(0, 4, (B, n_mb)).astype(np.int32),
+        seg_rows=seg_rows,
+        qtab=np.stack([seg_rows[k] for k in ("y1", "y2", "uv")],
+                      axis=1).reshape(B, 48, 16))
+
+
+def p2_args(d, device="cpu"):
+    """phase2_pack's tensor arguments from p2_inputs' dict."""
+    return tuple(torch.as_tensor(d[k]).to(device) for k in (
+        "Y", "U", "V", "modes", "uvmodes", "is_i4", "i4_modes", "seg_map",
+        "qtab"))
+
+
 def test_default_device_is_the_card_and_never_falls_back():
     """device=None asks for the card: without one it raises rather than
     running the plain versions on the CPU."""
@@ -52,11 +90,13 @@ def test_kernels_and_files_on_the_card_equal_plain_versions():
     from webp_tpu_torch.ops import cuda
     from webp_tpu_torch.ops import i4_kernel as I4K
     from webp_tpu_torch.ops import p1_kernels as P1K
+    from webp_tpu_torch.ops import p2_kernel as P2K
 
     calls = {}
     wrappers = {(P1K, "alphas"): P1K.alphas_plain,
                 (P1K, "mode_search"): P1K.mode_search_plain,
-                (I4K, "i4_scores"): I4K.i4_scores_plain}
+                (I4K, "i4_scores"): I4K.i4_scores_plain,
+                (P2K, "phase2_pack"): P2K.phase2_pack_plain}
     saved = {k: getattr(*k) for k in wrappers}
 
     def recorder(key):
@@ -72,22 +112,67 @@ def test_kernels_and_files_on_the_card_equal_plain_versions():
         cuda.reset_launches()
         on_card = webp_tpu_torch.encode_batch(imgs, 75, device="cuda")
         assert all(n > 0 for n in cuda.LAUNCHES.values()), cuda.LAUNCHES
+        assert cuda.LAUNCHES["p2_wavefront"] == 1
     finally:
         for k, f in saved.items():
             setattr(k[0], k[1], f)
     assert on_card == webp_tpu_torch.encode_batch(imgs, 75, device="cpu")
     for key, plain in wrappers.items():
         args = calls[key]
-        for got, ref in zip(saved[key](*args), plain(*args)):
+        for got, ref in zip(_outputs(saved[key](*args)),
+                            _outputs(plain(*args))):
             if got.is_floating_point():     # scores
                 torch.testing.assert_close(got, ref, rtol=3e-7, atol=0)
-            else:                           # modes and alphas
+            else:                           # modes, alphas and levels
                 assert torch.equal(got, ref), key
 
 
+def _outputs(x):
+    return list(x.values()) if isinstance(x, dict) else list(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(64, 48, 2), (16, 64, 2), (64, 16, 2),
+                                  (1536, 1024, 16)])
+def test_phase2_kernel_on_random_modes_equals_plain_version(geom):
+    """Kernel 4 against its plain version on modes, I4 splits, I4 modes and
+    segments drawn at random (every predictor on every edge), at a one-MB
+    column, a one-MB row and the main path's size: every output equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import cuda
+    from webp_tpu_torch.ops import p2_kernel as P2K
+
+    W, H, B = geom
+    args = p2_args(p2_inputs(B, W, H, W + H), "cuda")
+    cuda.reset_launches()
+    got = P2K.phase2_pack(*args, 1024.0, 1024)
+    assert cuda.LAUNCHES["p2_wavefront"] == 1
+    ref = P2K.phase2_pack_plain(*args, 1024.0, 1024)
+    assert list(got) == list(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+def test_stream_on_the_card_equals_encode_batch():
+    """The pipelined stream (side-stream uploads, pinned fetches) writes
+    encode_batch's files, a ragged last batch included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.container import riff
+    from webp_tpu_torch.lossy.device_encode import encode_lossy_stream
+
+    imgs = _images(5, 40, 72, seed=2)
+    got = encode_lossy_stream(imgs, 75, batch=2)
+    assert [riff.assemble_riff([riff.Chunk(riff.VP8, b)]) for b in got] == \
+        webp_tpu_torch.encode_batch(imgs, 75, device="cuda")
+
+
 def test_launch_signatures_match_the_cuda_sources():
-    """Each kernel's ctypes signature names the same parameters, pointer
-    or int, as its `extern "C"` launcher in csrc/ (plus the stream)."""
+    """Each kernel's ctypes signature names the same parameters, pointer,
+    float or int, as its `extern "C"` launcher in csrc/ (plus the
+    stream)."""
     import os
     import re
 
@@ -102,9 +187,11 @@ def test_launch_signatures_match_the_cuda_sources():
             text = f.read()
         m = re.search(r'extern "C" int ' + name + r"_launch\(([^)]*)\)", text)
         params = [p.strip() for p in m.group(1).split(",")]
-        kinds = ["p" if "*" in p else "i" for p in params]
+        kinds = ["p" if "*" in p else "f" if p.startswith("float ") else "i"
+                 for p in params]
         assert kinds[-1] == "p" and params[-1].endswith("stream")
-        want = ["p" if t is cuda._P else "i" for t in cuda.SIGNATURES[name]]
+        want = [{cuda._P: "p", cuda._F: "f", cuda._I: "i"}[t]
+                for t in cuda.SIGNATURES[name]]
         assert kinds[:-1] == want, name
 
 

@@ -1,8 +1,11 @@
 """Kernels 1 and 2 of the port (segment alphas; the I16/UV mode search),
-through their plain PyTorch versions, against the JAX package's Pallas
-kernels run in interpret mode: alphas, segment plans and modes exact,
-f32 scores within rtol 3e-7 (the reference's own Mosaic-vs-XLA bound,
-tests/test_pallas_p1.py)."""
+through their plain PyTorch versions, against the JAX package on the CPU:
+alphas against its Pallas alpha kernel in interpret mode; the mode search
+against its jnp formulation phase1p.phase1_planar, which the reference's
+own tests/test_pallas_p1.py holds equal to its Pallas mode kernel in
+interpret mode (with and without TDisto) in the same run. Alphas, segment
+plans and modes exact, f32 scores within rtol 3e-7 (the reference's own
+Mosaic-vs-XLA bound)."""
 
 import numpy as np
 import pytest
@@ -13,6 +16,7 @@ import torch
 from webp_tpu.lossy import tables as T_ref
 from webp_tpu.ops import fastpath as FP_ref
 from webp_tpu.ops import phase1p as P1_ref
+from webp_tpu.ops import planar as PL_ref
 from webp_tpu_torch.ops import cuda
 from webp_tpu_torch.ops import fastpath as FP
 from webp_tpu_torch.ops import p1_kernels as K
@@ -90,6 +94,29 @@ def _segment_tables(B, n_mb, seed):
             lam_mode[seg_q], tlsd4)
 
 
+def _lane_rows(seg_map, seg_q, lam16, lamuv, lammd, tlsd4):
+    """The jnp phase1_planar's per-lane inputs from per-image segment
+    plans, as tests/test_pallas_p1.py builds them: quant rows {type: 4 x
+    [16, L]} and lambdas {i16, uv, mode: [L]}, tlsd [L] or None."""
+    B, n_mb = seg_map.shape
+    L = B * n_mb
+    tabs = FP_ref.all_q_tables()[0]
+    seg_lane = jnp.asarray(seg_map.reshape(L))
+
+    def per_lane(per_seg):                       # [B, 4, ...] -> [..., L]
+        a = np.moveaxis(np.asarray(per_seg), 1, 0)           # [4, B, ...]
+        a = np.moveaxis(a, 1, -1)[..., None]                 # [4, ..., B, 1]
+        a = np.broadcast_to(a, a.shape[:-1] + (n_mb,))
+        return PL_ref._seg_select_p(
+            jnp.asarray(a.reshape(a.shape[:-2] + (L,))), seg_lane)
+
+    qp_rows = {k: tuple(per_lane(tabs[k][seg_q][:, :, i].astype(np.int32))
+                        for i in range(4)) for k in ("y1", "y2", "uv")}
+    lam = {"i16": per_lane(lam16), "uv": per_lane(lamuv),
+           "mode": per_lane(lammd)}
+    return qp_rows, lam, None if tlsd4 is None else per_lane(tlsd4)
+
+
 @pytest.mark.parametrize("use_td", [False, True])
 @pytest.mark.parametrize("geom", [(64, 48), (80, 48)])
 def test_mode_search_plain_equals_pallas_mode_kernel(use_td, geom):
@@ -97,15 +124,15 @@ def test_mode_search_plain_equals_pallas_mode_kernel(use_td, geom):
     B, mb_w, mb_h = 2, W // 16, H // 16
     n_mb = mb_w * mb_h
     (Yt, Ut, Vt), (Yj, Uj, Vj) = _both(*_planes(B, W, H, 7), mb_w, mb_h)
-    _, seg_map, qtab, lam16, lamuv, lammd, tlsd4 = _segment_tables(
+    seg_q, seg_map, qtab, lam16, lamuv, lammd, tlsd4 = _segment_tables(
         B, n_mb, 11)
     if not use_td:
         tlsd4 = None
     rt = FP_ref.RateTables(np.asarray(T_ref.COEFFS_PROBA0))
-    m_r, uv_r, sc_r = P1_ref.phase1_planar_pallas(
-        Yj, Uj, Vj, jnp.asarray(qtab), lam16, lamuv, tlsd4,
-        jnp.asarray(seg_map), rt, mb_w, mb_h, interpret=True,
-        lam_mode4=lammd)
+    qp_rows, lam, tlsd = _lane_rows(seg_map, seg_q, lam16, lamuv, lammd,
+                                    tlsd4)
+    m_r, uv_r, sc_r = P1_ref.phase1_planar(Yj, Uj, Vj, qp_rows, lam, rt,
+                                           mb_w, mb_h, tlsd=tlsd)
 
     src, srcs = P1.build_src(Yt, Ut, Vt, mb_w, mb_h)
     f = torch.as_tensor

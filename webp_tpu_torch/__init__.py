@@ -25,16 +25,11 @@ def encode_batch(images, quality: int = 75, device=None, **options) -> list:
     sides are not multiples of 16 are edge-padded for the device and
     cropped by the frame header."""
     from .container import riff as r
-    from .lossy.device_encode import encode_lossy_batch
+    from .lossy.device_encode import encode_lossy_batch, pad_to_macroblocks
 
     rgbs = np.stack([np.asarray(im)[..., :3] for im in images])
     B, h, w = rgbs.shape[:3]
-    if h % 16 or w % 16:
-        pad = np.zeros((B, (h + 15) // 16 * 16, (w + 15) // 16 * 16, 3), np.uint8)
-        pad[:, :h, :w] = rgbs
-        pad[:, h:, :w] = rgbs[:, h - 1 : h, :]
-        pad[:, :, w:] = pad[:, :, w - 1 : w]
-        rgbs = pad
+    rgbs = pad_to_macroblocks(rgbs)
     bitstreams = encode_lossy_batch(rgbs, quality=int(quality),
                                     true_width=w, true_height=h,
                                     device=device, **options)

@@ -2,7 +2,8 @@
 
 Two kinds of library, both with a plain C interface loaded by ctypes:
 
-  * the host entropy coder (native/src, g++), used on every encode;
+  * the host entropy coder and YUV importer (native/src, g++), used on
+    every encode;
   * the Hopper kernels (csrc/*.cu, nvcc for sm_90a), used when a kernel
     wrapper receives CUDA tensors.
 
@@ -38,13 +39,15 @@ GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 # name -> (compiler, sources relative to the package, headers it includes)
 LIBS = {
     "webp_enc": ("g++", ["native/src/vp8_enc.cc",
-                         "native/src/vp8_enc_loop.cc"],
+                         "native/src/vp8_enc_loop.cc",
+                         "native/src/yuv_import.cc"],
                  ["native/src/bitio.h"]),
     "p1_alpha": ("nvcc", ["csrc/p1_alpha.cu"], ["csrc/common.cuh"]),
     "p1_mode": ("nvcc", ["csrc/p1_mode.cu"], ["csrc/common.cuh"]),
     "i4_search": ("nvcc", ["csrc/i4_search.cu"], ["csrc/common.cuh"]),
+    "p2_wavefront": ("nvcc", ["csrc/p2_wavefront.cu"], ["csrc/common.cuh"]),
 }
-KERNEL_LIBS = ("p1_alpha", "p1_mode", "i4_search")
+KERNEL_LIBS = ("p1_alpha", "p1_mode", "i4_search", "p2_wavefront")
 
 _loaded: dict = {}
 _mutex = threading.Lock()

@@ -1,8 +1,9 @@
-// Device helpers shared by the port's phase-1 and I4 search kernels.
+// Device helpers shared by the port's kernels.
 //
 // Exact VP8 integer transforms (the reference's transforms.go, op for op as
-// in webp_tpu_torch/ops/planar.py), the quantizer, and the approximate
-// block-rate model of ops/fastpath.py RateTables. Every float operation a
+// in webp_tpu_torch/ops/planar.py), the I16/chroma and I4 predictors, the
+// quantizers (with the rate walk of ops/fastpath.py RateTables, and with
+// the trellis-lite rd_drop of planar.quantize_p). Every float operation a
 // kernel does is spelled with a round-to-nearest intrinsic (__fmul_rn,
 // __fadd_rn) so that nvcc cannot contract a multiply and an add into one
 // fused operation: the RD scores must round as the plain PyTorch version's
@@ -55,6 +56,100 @@ __device__ __forceinline__ int mul2(int a) { return wrap_mul(a, 35468) >> 16; }
 __device__ __forceinline__ int clamp255(int v) {
   return v < 0 ? 0 : (v > 255 ? 255 : v);
 }
+
+// Raster position of zigzag index zz, from a nibble table: it folds to a
+// constant where zz is one (unrolled loops), so that arrays indexed by it
+// stay in registers (a __constant__ table cannot be folded).
+__device__ __forceinline__ int zigzag_pos(int zz) {
+  return (int)((0xFEB7ADC963258410ull >> (4 * zz)) & 15);
+}
+
+// One pixel of the I16 and chroma predictors (modes DC, TM, V, H) from the
+// masked contour: the left pixel of its row, the top pixel of its column
+// and the corner.
+__device__ __forceinline__ int pred_dtvh(int mode, int dc, int left, int top,
+                                         int tl) {
+  return mode == 0 ? dc
+         : mode == 1 ? clamp255(left + top - tl)
+         : mode == 2 ? top
+                     : left;
+}
+
+__device__ __forceinline__ int avg2(int a, int b) { return (a + b + 1) >> 1; }
+__device__ __forceinline__ int avg3(int a, int b, int c) {
+  return (a + 2 * b + c + 2) >> 2;
+}
+
+// The 13-pixel contour of a 4x4 subblock and its smoothed strips, from which
+// the 10 I4 predictors read (ops/planar.py pred4_all_p): l0..l3 down the
+// left, the corner, t0..t3 and the above-right tr0..tr3.
+struct I4Contour {
+  int l[4], t[4], tl;
+  int s3[11], s2[12], s3h[4], s2h[5], dc, ld_tail;
+
+  __device__ __forceinline__ I4Contour(const int* l_, int tl_, const int* t_,
+                                       const int* tr) {
+    tl = tl_;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      l[k] = l_[k];
+      t[k] = t_[k];
+    }
+    const int ctr[13] = {l[3], l[2], l[1], l[0], tl,    t[0], t[1],
+                         t[2], t[3], tr[0], tr[1], tr[2], tr[3]};
+#pragma unroll
+    for (int k = 0; k < 11; ++k) s3[k] = avg3(ctr[k], ctr[k + 1], ctr[k + 2]);
+#pragma unroll
+    for (int k = 0; k < 12; ++k) s2[k] = avg2(ctr[k], ctr[k + 1]);
+    const int lr[6] = {tl, l[0], l[1], l[2], l[3], l[3]};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s3h[k] = avg3(lr[k], lr[k + 1], lr[k + 2]);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) s2h[k] = avg2(lr[k], lr[k + 1]);
+    dc = (t[0] + t[1] + t[2] + t[3] + l[0] + l[1] + l[2] + l[3] + 4) >> 3;
+    ld_tail = avg3(tr[2], tr[3], tr[3]);
+  }
+
+  // Pixel (r, c) of I4 mode `mode`: DC, TM, VE, HE, RD, VR, LD, VL, HD, HU.
+  __device__ __forceinline__ int pred(int mode, int r, int c) const {
+    switch (mode) {
+      case 0: return dc;
+      case 1: return clamp255(l[r] + t[c] - tl);
+      case 2: return s3[4 + c];
+      case 3: return s3h[r];
+      case 4: return s3[3 - r + c];
+      case 5:                                                     // VR
+        if (r == 0) return s2[4 + c];
+        if (r == 1) return s3[3 + c];
+        if (r == 2) return c == 0 ? s3[2] : s2[3 + c];
+        return c == 0 ? s3[1] : s3[2 + c];
+      case 6: {                                                   // LD
+        const int k = r + c;
+        return k < 6 ? s3[5 + k] : ld_tail;
+      }
+      case 7:                                                     // VL
+        if (r == 0) return s2[5 + c];
+        if (r == 1) return s3[5 + c];
+        if (r == 2) return c < 3 ? s2[6 + c] : s3[9];
+        return c < 3 ? s3[6 + c] : s3[10];
+      case 8: {                                                   // HD
+        // hd0 = [s2h0 s3_3 s3_4 s3_5]; hd(r) = [s2h_r s3h_(r-1)
+        // hd(r-1)[0:2]].
+        const int hd0[4] = {s2h[0], s3[3], s3[4], s3[5]};
+        const int hd1[4] = {s2h[1], s3h[0], hd0[0], hd0[1]};
+        const int hd2[4] = {s2h[2], s3h[1], hd1[0], hd1[1]};
+        const int hd3[4] = {s2h[3], s3h[2], hd2[0], hd2[1]};
+        return r == 0 ? hd0[c] : r == 1 ? hd1[c] : r == 2 ? hd2[c] : hd3[c];
+      }
+      default: {                                                  // HU
+        const int hu0[4] = {s2h[1], s3h[1], s2h[2], s3h[2]};
+        const int hu1[4] = {hu0[2], hu0[3], s2h[3], s3h[3]};
+        const int hu2[4] = {hu1[2], hu1[3], l[3], l[3]};
+        return r == 0 ? hu0[c] : r == 1 ? hu1[c] : r == 2 ? hu2[c] : l[3];
+      }
+    }
+  }
+};
 
 // Forward DCT of d[16] (raster p = r*4 + c, src - pred) into out[16].
 __device__ __forceinline__ void fdct4x4(const int* d, int* out) {
@@ -223,6 +318,52 @@ __device__ __forceinline__ int quant_rate(const int* co,
     }
   }
   return has_any ? rate + pend : rcp[RC_EMPTY + first];
+}
+
+// Trellis distortion weights by zigzag position (ops/quant.py _WT).
+__device__ __constant__ float kTrellisW[16] = {30, 27, 19, 11, 27, 24, 17, 10,
+                                               19, 17, 12, 8,  11, 10, 8,  6};
+
+// TLambda of a quantizer's q row (zigzag columns): floor((q0 + 15 q1 + 8)
+// / 16)^2 / 4 in float, rounded op by op as ops/planar.py quantize_p does.
+__device__ __forceinline__ float trellis_lambda(const int* qr) {
+  const float q0 = __int2float_rn(qr[0]), q1 = __int2float_rn(qr[1]);
+  const float base = floorf(
+      __fmul_rn(__fadd_rn(__fadd_rn(q0, __fmul_rn(15.0f, q1)), 8.0f), 0.0625f));
+  return __fmul_rn(__fmul_rn(base, base), 0.25f);
+}
+
+// Quantizes raster coefficients co[16] with the quantizer rows at qr (q,
+// iq, bias and sharpen at +0, +16, +32, +48; zigzag columns) into signed
+// zigzag levels lv[16] and signed raster dequantized values dq[16]
+// (ops/planar.py quantize_p). Levels before zigzag position `first` are 0.
+// With rd > 0 (rd_drop times the pipeline's multiplier) a level of 1 is
+// dropped where 256 * wt * (c^2 - (c - q)^2) < rd * tlam, c the magnitude
+// after sharpening: c^2 can pass 2^24, so every float operation is rounded
+// as the plain version's separate tensor operations round it.
+__device__ __forceinline__ void quantize_rd(const int* co, const int* qr,
+                                            int first, float rd, float tlam,
+                                            int* lv, int* dq) {
+#pragma unroll
+  for (int zz = 0; zz < 16; ++zz) {
+    const int p = zigzag_pos(zz);
+    const int c = co[p];
+    const int q = qr[zz];
+    const int mag = abs(c) + qr[48 + zz];
+    int level = (mag * qr[16 + zz] + qr[32 + zz]) >> QFIX;
+    level = level < MAX_LEVEL ? level : MAX_LEVEL;
+    if (rd > 0.0f && level == 1) {
+      const float c0 = __int2float_rn(mag), qf = __int2float_rn(q);
+      const float e = __fsub_rn(c0, qf);
+      const float dd = __fmul_rn(
+          kTrellisW[zz], __fsub_rn(__fmul_rn(c0, c0), __fmul_rn(e, e)));
+      if (__fmul_rn(256.0f, dd) < __fmul_rn(rd, tlam)) level = 0;
+    }
+    if (zz < first) level = 0;
+    const int s = c < 0 ? -level : level;
+    lv[zz] = s;
+    dq[p] = s * q;
+  }
 }
 
 // rate * lam + D, rounded as two separate float operations.

@@ -32,11 +32,6 @@ namespace {
 
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ int a2(int a, int b) { return (a + b + 1) >> 1; }
-__device__ __forceinline__ int a3(int a, int b, int c) {
-  return (a + 2 * b + c + 2) >> 2;
-}
-
 __global__ void __launch_bounds__(THREADS)
 i4_search_kernel(const uint8_t* __restrict__ data, const int* __restrict__ qtab,
                  const float* __restrict__ lams, const int* __restrict__ rc_g,
@@ -66,22 +61,7 @@ i4_search_kernel(const uint8_t* __restrict__ data, const int* __restrict__ qtab,
   const float lam = lam_r[seg], tlsd = lam_r[4 + seg], lammd = lam_r[8 + seg];
   const int* rcp = rc + 3 * wtk::RC_PT;
 
-  // Smoothed strips over the contour [l3 l2 l1 l0 tl t0..t3 tr0..tr3].
-  const int ctr[13] = {l[3], l[2], l[1], l[0], tl, t[0], t[1],
-                       t[2], t[3], tr[0], tr[1], tr[2], tr[3]};
-  int s3[11], s2[12];
-#pragma unroll
-  for (int k = 0; k < 11; ++k) s3[k] = a3(ctr[k], ctr[k + 1], ctr[k + 2]);
-#pragma unroll
-  for (int k = 0; k < 12; ++k) s2[k] = a2(ctr[k], ctr[k + 1]);
-  const int lr[6] = {tl, l[0], l[1], l[2], l[3], l[3]};
-  int s3h[4], s2h[5];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) s3h[k] = a3(lr[k], lr[k + 1], lr[k + 2]);
-#pragma unroll
-  for (int k = 0; k < 5; ++k) s2h[k] = a2(lr[k], lr[k + 1]);
-  const int dc = (t[0] + t[1] + t[2] + t[3] + l[0] + l[1] + l[2] + l[3] + 4) >> 3;
-  const int ld_tail = a3(tr[2], tr[3], tr[3]);
+  const wtk::I4Contour ctr(l, tl, t, tr);
   const int ha_src = use_td ? wtk::hadamard_w(src) : 0;
 
   float best_score = INFINITY, best_rate = 0.f, best_D = 0.f;
@@ -91,53 +71,7 @@ i4_search_kernel(const uint8_t* __restrict__ data, const int* __restrict__ qtab,
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        int v;
-        switch (mode) {
-          case 0: v = dc; break;                                  // DC
-          case 1: v = wtk::clamp255(l[r] + t[c] - tl); break;     // TM
-          case 2: v = s3[4 + c]; break;                           // VE
-          case 3: v = s3h[r]; break;                              // HE
-          case 4: v = s3[3 - r + c]; break;                       // RD
-          case 5: {                                               // VR
-            if (r == 0) v = s2[4 + c];
-            else if (r == 1) v = s3[3 + c];
-            else if (r == 2) v = c == 0 ? s3[2] : s2[3 + c];
-            else v = c == 0 ? s3[1] : s3[2 + c];
-            break;
-          }
-          case 6: {                                               // LD
-            const int k = r + c;
-            v = k < 6 ? s3[5 + k] : ld_tail;
-            break;
-          }
-          case 7: {                                               // VL
-            if (r == 0) v = s2[5 + c];
-            else if (r == 1) v = s3[5 + c];
-            else if (r == 2) v = c < 3 ? s2[6 + c] : s3[9];
-            else v = c < 3 ? s3[6 + c] : s3[10];
-            break;
-          }
-          case 8: {                                               // HD
-            // hd0 = [s2h0 s3_3 s3_4 s3_5]; hd(r) = [s2h_r s3h_(r-1)
-            // hd(r-1)[0:2]].
-            const int hd0[4] = {s2h[0], s3[3], s3[4], s3[5]};
-            const int hd1[4] = {s2h[1], s3h[0], hd0[0], hd0[1]};
-            const int hd2[4] = {s2h[2], s3h[1], hd1[0], hd1[1]};
-            const int hd3[4] = {s2h[3], s3h[2], hd2[0], hd2[1]};
-            v = r == 0 ? hd0[c] : r == 1 ? hd1[c] : r == 2 ? hd2[c] : hd3[c];
-            break;
-          }
-          default: {                                              // HU
-            const int hu0[4] = {s2h[1], s3h[1], s2h[2], s3h[2]};
-            const int hu1[4] = {hu0[2], hu0[3], s2h[3], s3h[3]};
-            const int hu2[4] = {hu1[2], hu1[3], l[3], l[3]};
-            v = r == 0 ? hu0[c] : r == 1 ? hu1[c] : r == 2 ? hu2[c] : l[3];
-            break;
-          }
-        }
-        pred[r * 4 + c] = v;
-      }
+      for (int c = 0; c < 4; ++c) pred[r * 4 + c] = ctr.pred(mode, r, c);
     }
     int d[16], co[16], dq[16];
 #pragma unroll

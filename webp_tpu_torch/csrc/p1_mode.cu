@@ -119,11 +119,7 @@ p1_mode_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ ctx,
     for (int r = 0; r < 4; ++r) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        int v;
-        if (mode == 0) v = dc16;
-        else if (mode == 1) v = wtk::clamp255(lv[r] + tv[c] - tl_m);
-        else if (mode == 2) v = tv[c];
-        else v = lv[r];
+        const int v = wtk::pred_dtvh(mode, dc16, lv[r], tv[c], tl_m);
         pred[r * 4 + c] = v;
         d[r * 4 + c] = sblk[r * 4 + c] - v;
       }
@@ -206,12 +202,8 @@ p1_mode_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ ctx,
       for (int r = 0; r < 4; ++r) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          int v;
-          if (mode == 0) v = cdc;
-          else if (mode == 1) v = wtk::clamp255(clv[r] + ctv[c] - ctl);
-          else if (mode == 2) v = ctv[c];
-          else v = clv[r];
-          d[r * 4 + c] = csrc[r * 4 + c] - v;
+          d[r * 4 + c] =
+              csrc[r * 4 + c] - wtk::pred_dtvh(mode, cdc, clv[r], ctv[c], ctl);
         }
       }
       wtk::fdct4x4(d, co);

@@ -7,7 +7,8 @@ The device returns each image's fields as one byte blob (BLOB_CHUNKS
 chunks); the host unpacks them, installs the device's segment plan into
 the frame header and entropy-codes the levels. An image whose escape
 list overflowed the device's capacity is re-encoded by the exact host
-encoder.
+encoder. encode_lossy_batch runs one batch; encode_lossy_stream pipelines
+a stream of batches (upload, compute and host tail overlapped).
 """
 
 from __future__ import annotations
@@ -126,6 +127,20 @@ class DeviceVP8Encoder(VP8Encoder):
 FALLBACKS = {"images": 0}
 
 
+def pad_to_macroblocks(rgbs):
+    """uint8 [B, h, w, 3] -> [B, H, W, 3] with H, W the next multiples of
+    16, the last row and column replicated (the input itself when no
+    padding is needed)."""
+    B, h, w = rgbs.shape[:3]
+    if h % 16 == 0 and w % 16 == 0:
+        return rgbs
+    pad = np.zeros((B, (h + 15) // 16 * 16, (w + 15) // 16 * 16, 3), np.uint8)
+    pad[:, :h, :w] = rgbs
+    pad[:, h:, :w] = rgbs[:, h - 1:h, :]
+    pad[:, :, w:] = pad[:, :, w - 1:w]
+    return pad
+
+
 def device_blob(rgbs, quality: int = 75, segments: int = 4,
                 sns_strength: int = 50, device=None):
     """Runs the device program on a batch: numpy uint8 [B, H, W, 3] (H, W
@@ -139,6 +154,23 @@ def device_blob(rgbs, quality: int = 75, segments: int = 4,
     chunks = fn.rgb_blob(x)
     host = unpack_output_blob([c.cpu().numpy() for c in chunks], fn.blob_spec)
     return fn, host
+
+
+def _emit(host, rgbs, fn, width, height, cfg, ex):
+    """Host tail of one batch: entropy-codes each image's device fields on
+    the pool, or re-encodes with the exact host encoder (from its RGB in
+    rgbs) an image whose escape list overflowed."""
+    overflow = host["esc_cnt"] > fn.esc_cap
+    FALLBACKS["images"] += int(overflow.sum())
+
+    def emit(i):
+        if overflow[i]:
+            Y, U, V = rgb_to_yuv420(rgbs[i])
+            return VP8Encoder(Y, U, V, width, height, cfg).encode()
+        return _finish_one({k: v[i] for k, v in host.items()},
+                           fn.mb_w, fn.mb_h, width, height, cfg)
+
+    return list(ex.map(emit, range(len(rgbs))))
 
 
 def encode_lossy_batch(rgbs, quality: int = 75, partitions: int = 0,
@@ -155,23 +187,137 @@ def encode_lossy_batch(rgbs, quality: int = 75, partitions: int = 0,
     Returns a list of VP8 bitstreams.
     """
     B, H, W, _ = rgbs.shape
-    mb_w, mb_h = W // 16, H // 16
     fn, host = device_blob(rgbs, quality, segments, sns_strength, device)
-
-    tw = true_width or W
-    th = true_height or H
     cfg = LossyConfig(quality=quality, partitions=partitions,
                       filter_strength=filter_strength, segments=segments,
                       sns_strength=sns_strength)
-    overflow = host["esc_cnt"] > fn.esc_cap
-    FALLBACKS["images"] += int(overflow.sum())
-
-    def emit(i):
-        if overflow[i]:
-            Y, U, V = rgb_to_yuv420(rgbs[i])
-            return VP8Encoder(Y, U, V, tw, th, cfg).encode()
-        return _finish_one({k: v[i] for k, v in host.items()},
-                           mb_w, mb_h, tw, th, cfg)
-
     with concurrent.futures.ThreadPoolExecutor(max_workers=num_threads) as ex:
-        return list(ex.map(emit, range(B)))
+        return _emit(host, rgbs, fn, true_width or W, true_height or H, cfg,
+                     ex)
+
+
+def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
+                        partitions: int = 0, filter_strength: int = 60,
+                        num_threads: int = 12, host_yuv: bool = False,
+                        segments: int = 4, sns_strength: int = 50,
+                        sharp_yuv: bool = False, device=None):
+    """Pipelined encode of a stream of same-sized images (counterpart of
+    the reference's encode_lossy_stream on one device).
+
+    Three overlapped stages, batch by batch:
+      upload(i+1)  ||  device compute(i)  ||  fetch + entropy coding(i-1).
+    The upload stage pads each image to whole macroblocks and, with
+    host_yuv, converts it to YUV 4:2:0 with the native importer on the
+    thread pool, which halves the bytes to upload; the planes (or the RGB
+    batch) are staged in pinned host memory and copied to the card by
+    non_blocking copies on a side stream, behind an event. The device
+    program (fn.blob on YUV planes, fn.rgb_blob on RGB) waits on that
+    event on the current stream; its blob chunks are copied back into
+    pinned buffers behind a second event, which the drain of the batch
+    waits on before the host pool entropy-codes it. Python only blocks on
+    the previous batch's fetch, never on the current compute.
+
+    host_yuv is off by default, so that the files equal encode_batch's:
+    the host importer takes its chroma from the reference's gamma tables
+    with interpolation, the device conversion (ops/yuv.py) from float
+    power curves, and the two differ by 1 on some chroma samples. With
+    host_yuv=True the files are those of the reference's stream default
+    (its native importer), which differ from its encode_batch's in the
+    same way.
+
+    The stream uses exactly the one device it is given: None means the
+    card, "cpu" runs the plain versions (no streams or pinned memory, the
+    same three stages). The reference's multi-device path is not ported;
+    sharp_yuv is not ported and raises. An image whose escape list
+    overflows is re-encoded by the exact host encoder from the caller's
+    unpadded image, as the reference's stream does (encode_lossy_batch
+    starts from the padded one, so on sizes that are not whole
+    macroblocks the two fallbacks may differ in the padding's chroma).
+
+    images: list of uint8 [h, w, 3] arrays of one size. Returns the VP8
+    bitstreams in order.
+    """
+    from ..ops.fastpath import fast_encode_fn
+
+    if sharp_yuv:
+        raise NotImplementedError("encode_lossy_stream: sharp-YUV is not "
+                                  "ported")
+    if not images:
+        return []
+    dev = _resolve_device(device)
+    on_card = dev.type == "cuda"
+    h, w = images[0].shape[:2]
+    H, W = (h + 15) // 16 * 16, (w + 15) // 16 * 16
+    fn = fast_encode_fn(W // 16, H // 16, quality, segments, sns_strength)
+    cfg = LossyConfig(quality=quality, partitions=partitions,
+                      filter_strength=filter_strength, segments=segments,
+                      sns_strength=sns_strength)
+    side = torch.cuda.Stream(dev) if on_card else None
+
+    def prep_one(img):
+        rgb = pad_to_macroblocks(img[None])[0]
+        return (rgb,) + (rgb_to_yuv420(rgb) if host_yuv else ())
+
+    def upload(imgs):
+        rgbs = [np.asarray(img)[..., :3] for img in imgs]
+        prepped = list(ex.map(prep_one, rgbs))
+        planes = [torch.from_numpy(np.stack(p)) for p in zip(*prepped)]
+        planes = planes[1:] if host_yuv else planes[:1]
+        if not on_card:
+            return rgbs, planes, None
+        staged = [p.pin_memory() for p in planes]
+        with torch.cuda.stream(side):
+            planes = [p.to(dev, non_blocking=True) for p in staged]
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return rgbs, planes, ready
+
+    def launch(up):
+        rgbs, planes, ready = up
+        if ready is not None:
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(ready)
+            for p in planes:
+                p.record_stream(stream)
+        chunks = fn.blob(*planes) if host_yuv else fn.rgb_blob(planes[0])
+        if ready is None:
+            return rgbs, chunks, None
+        host = [torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
+                for c in chunks]
+        for dst, c in zip(host, chunks):
+            dst.copy_(c, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return rgbs, host, done
+
+    batches = [images[i:i + batch] for i in range(0, len(images), batch)]
+    results = []
+    # Uploads run on their own thread: they wait on the pool's
+    # conversions, which must not queue behind them.
+    with concurrent.futures.ThreadPoolExecutor(max_workers=num_threads) as ex, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) as up_ex:
+        up = upload(batches[0])
+        inflight = None
+        for i in range(len(batches)):
+            out = launch(up)
+            up_fut = (up_ex.submit(upload, batches[i + 1])
+                      if i + 1 < len(batches) else None)
+            if inflight is not None:
+                results.extend(_drain(inflight, fn, w, h, cfg, ex))
+            inflight = out
+            if up_fut is not None:
+                up = up_fut.result()
+        results.extend(_drain(inflight, fn, w, h, cfg, ex))
+    return results
+
+
+def _drain(inflight, fn, width, height, cfg, ex):
+    """Fetches one batch's blob (waiting on its copy-back event) and
+    entropy-codes it on the pool."""
+    from ..ops.fastpath import unpack_output_blob
+
+    rgbs, chunks, done = inflight
+    if done is not None:
+        done.synchronize()
+    host = unpack_output_blob([c.numpy() for c in chunks], fn.blob_spec)
+    return _emit(host, rgbs, fn, width, height, cfg, ex)

@@ -1,9 +1,11 @@
 """ctypes bindings for the encoder-side native library: the boolean
 writer, token emission, statistics, the closed-loop MB encode (the
-escape-overflow fallback) and the analysis alphas.
+escape-overflow fallback), the analysis alphas and the RGB -> YUV 4:2:0
+importer.
 
-Sources: native/src/vp8_enc.cc, vp8_enc_loop.cc and bitio.h. The library
-is compiled with g++ at first use (webp_tpu_torch/_build.py).
+Sources: native/src/vp8_enc.cc, vp8_enc_loop.cc, yuv_import.cc and
+bitio.h. The library is compiled with g++ at first use
+(webp_tpu_torch/_build.py).
 """
 
 from __future__ import annotations
@@ -45,6 +47,11 @@ def _setup(lib):
         ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
         ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
     ]
+    lib.yuv_import.argtypes = [
+        ct.c_void_p, ct.c_int, ct.c_int,
+        ct.c_void_p, ct.c_void_p, ct.c_void_p,
+    ]
+    lib.yuv_import.restype = None
     return lib
 
 
@@ -214,3 +221,18 @@ def vp8_compute_alphas(Y, U, V, mb_w, mb_h):
     lib.vp8_compute_alphas(_ptr(Y), _ptr(U), _ptr(V), mb_w, mb_h,
                            _ptr(mixed), _ptr(guv))
     return mixed, int(guv[0])
+
+
+def native_yuv_import(rgb: np.ndarray):
+    """RGB [h, w, 3] u8 -> (Y, U, V) u8 planes padded to MB multiples by
+    border replication (native/src/yuv_import.cc; the reference's
+    rgb_to_yuv420 without dithering). Releases the GIL while it runs."""
+    lib = get()
+    h, w = rgb.shape[:2]
+    mbw, mbh = (w + 15) >> 4, (h + 15) >> 4
+    rgb = np.ascontiguousarray(rgb[..., :3], dtype=np.uint8)
+    Y = np.empty((mbh * 16, mbw * 16), dtype=np.uint8)
+    U = np.empty((mbh * 8, mbw * 8), dtype=np.uint8)
+    V = np.empty((mbh * 8, mbw * 8), dtype=np.uint8)
+    lib.yuv_import(_ptr(rgb), h, w, _ptr(Y), _ptr(U), _ptr(V))
+    return Y, U, V

@@ -3,10 +3,11 @@
 Each kernel lives in csrc/<name>.cu behind a plain C function
 `<name>_launch(...)` that returns cudaGetLastError(); the library is built
 by nvcc at first use (_build.py) and called through ctypes on PyTorch's
-current stream. A kernel wrapper (ops/p1_kernels.py, ops/i4_kernel.py)
-checks its tensors with `check`, takes its plain PyTorch version only when
-`on_cpu` says the tensors lie on the CPU, and otherwise calls `launch`,
-which raises on a refused launch and counts it in LAUNCHES.
+current stream. A kernel wrapper (ops/p1_kernels.py, ops/i4_kernel.py,
+ops/p2_kernel.py) checks its tensors with `check`, takes its plain
+PyTorch version only when `on_cpu` says the tensors lie on the CPU, and
+otherwise calls `launch`, which raises on a refused launch and counts it
+in LAUNCHES.
 """
 
 from __future__ import annotations
@@ -56,14 +57,15 @@ def on_cpu(*tensors) -> bool:
     return False
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # The C signature of each `<name>_launch` before its trailing stream
-# argument: pointers for tensors, ints for sizes and flags.
+# argument: pointers for tensors, ints for sizes and flags, floats.
 SIGNATURES = {
     "p1_alpha": (_P, _I, _P, _P),
     "p1_mode": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "i4_search": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "p2_wavefront": (_P,) * 9 + (_I,) * 3 + (_F,) * 2 + (_P,) * 8,
 }
 _fns: dict = {}
 
@@ -89,8 +91,9 @@ def launch(name: str, *args) -> None:
     fn = _launcher(name)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-                   for a in args], stream)
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor)
+                   else float(a) if t is _F else int(a)
+                   for a, t in zip(args, SIGNATURES[name])], stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")

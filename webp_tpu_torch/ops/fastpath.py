@@ -7,8 +7,8 @@ webp_tpu/ops/fastpath.py, the batched planar main path).
   Phase 1 — fully parallel mode search with source-pixel context: I16 and
     UV (kernel 2, ops/p1_kernels.py), then the 10-mode I4 search
     (kernel 3, ops/i4_kernel.py) and the I4-vs-I16 split.
-  Phase 2 — the closed-loop skew-1 wavefront with modes fixed
-    (ops/planar.py phase2_planar), then nibble packing and the escape list.
+  Phase 2 — the closed-loop skew-1 wavefront with modes fixed, fused with
+    nibble packing (kernel 4, ops/p2_kernel.py), then the escape list.
 
 Configuration ported: segments > 1, SNS, I4 on, skew 1, rd_drop, no
 trellis, no in-loop search, no sharp-YUV. Other configurations raise
@@ -394,28 +394,37 @@ def _tlsd_from_seg(sns: int, seg_q, seg_map):
 # Device-side nibble packing.
 # ---------------------------------------------------------------------------
 
-def _pack_levels(lv24, esc_cap):
-    """lv24: int16 [B, n_mb, 24, 16] -> (packed u8 [B, n_mb, 24, 8],
-    esc_idx i32 [B, K] block indices, esc_blk i16 [B, K, 16],
-    esc_cnt i32 [B]), K = min(esc_cap, 24 * n_mb).
+def escape_list(flags, blocks, esc_cap):
+    """flags bool [B, n_blk], blocks i16 [B, n_blk, 16] -> (esc_idx i32
+    [B, K] block indices, esc_blk i16 [B, K, 16], esc_cnt i32 [B]),
+    K = min(esc_cap, n_blk).
 
     Escape compaction by an ascending sort of the flagged block indices
     (unflagged blocks sort last as a sentinel, read back as index 0): the
     same order and fill as the reference."""
+    n_blk = flags.shape[1]
+    ar = torch.arange(n_blk, dtype=torch.int32, device=flags.device)
+    keys = torch.where(flags, ar, n_blk)
+    idx = torch.sort(keys, dim=1).values[:, :esc_cap]
+    idx = torch.where(idx >= n_blk, 0, idx)
+    esc_blk = torch.gather(blocks, 1,
+                           idx.long()[..., None].expand(*idx.shape, 16))
+    return idx, esc_blk, flags.sum(dim=1).to(torch.int32)
+
+
+def _pack_levels(lv24, esc_cap):
+    """lv24: int16 [B, n_mb, 24, 16] -> (packed u8 [B, n_mb, 24, 8],
+    esc_idx i32 [B, K] block indices, esc_blk i16 [B, K, 16],
+    esc_cnt i32 [B]), K = min(esc_cap, 24 * n_mb). Two coefficients per
+    byte as level + 8; a coefficient with |level| > 7 ships as nibble 0
+    and its block goes to the escape list."""
     B = lv24.shape[0]
     v = lv24.to(torch.int32)
     esc = v.abs() > 7
     nib = torch.where(esc, 0, v.clamp(-7, 7) + 8).to(torch.uint8)
     packed = nib[..., 0::2] | (nib[..., 1::2] << 4)
-    blk = esc.any(dim=-1).reshape(B, -1)                     # [B, n_blk]
-    n_blk = blk.shape[1]
-    ar = torch.arange(n_blk, dtype=torch.int32, device=lv24.device)
-    keys = torch.where(blk, ar, n_blk)
-    idx = torch.sort(keys, dim=1).values[:, :esc_cap]
-    idx = torch.where(idx >= n_blk, 0, idx)
-    blocks = torch.gather(lv24.reshape(B, n_blk, 16), 1,
-                          idx.long()[..., None].expand(*idx.shape, 16))
-    return packed, idx, blocks, blk.sum(dim=1).to(torch.int32)
+    return (packed,) + escape_list(esc.any(dim=-1).reshape(B, -1),
+                                   lv24.reshape(B, -1, 16), esc_cap)
 
 
 def unpack_levels(packed, esc_idx, esc_blk, esc_cnt, n_mb):
@@ -519,9 +528,10 @@ def unpack_output_blob(chunks, spec):
 class FastEncoder:
     """Batched two-phase device encoder for one geometry and config.
 
-    fn.rgb_blob(rgbs [B, H, W, 3] u8) and fn.rgbp_blob(rgbps [B, 3, H, W]
-    u8) run the whole device program on the inputs' device and return
-    the blob chunks (see _blobify); fn(Yb, Ub, Vb) returns the field dict.
+    fn.rgb_blob(rgbs [B, H, W, 3] u8), fn.rgbp_blob(rgbps [B, 3, H, W] u8)
+    and fn.blob(Yb, Ub, Vb) (YUV 4:2:0 planes) run the whole device program
+    on the inputs' device and return the blob chunks (see _blobify);
+    fn(Yb, Ub, Vb) returns the field dict.
     fn.blob_spec, fn.esc_cap and fn.n_mb describe the output.
     """
 
@@ -574,42 +584,42 @@ class FastEncoder:
             Yb, seg_map, seg_rows["y1"].reshape(B, 16, 16), lam4_4b,
             lammd_4b, tlsd4, i16_score, mb_w, mb_h)
         return (modes, uvmodes, is_i4, i4_modes, seg_map, seg_q, seg_beta,
-                seg_rows, dq_uv_b)
+                qtabs, dq_uv_b)
 
     def phase2(self, Yb, Ub, Vb, p1):
-        """The closed-loop wavefront with the modes of part1_batched (p1)
-        fixed -> (lv24 [B, n_mb, 24, 16] i16, y2 [B, n_mb, 16] i16)."""
-        from . import planar as PL
+        """Phase 2 with the modes of part1_batched (p1) fixed: the
+        closed-loop wavefront and the pack of its levels (kernel 4,
+        ops/p2_kernel.py) -> wire dict {packed, esc_idx, esc_val, esc_cnt,
+        y2, skip}."""
+        from . import p2_kernel as P2K
 
-        modes, uvmodes, is_i4, i4_modes, seg_map, _, _, seg_rows, _ = p1
-        lv24, y2, _, _ = PL.phase2_planar(
-            Yb, Ub, Vb, modes, uvmodes, None, self.mb_w, self.mb_h,
-            rd_drop=self.rd_drop, seg=(seg_map, seg_rows),
-            i4=(is_i4, i4_modes))
-        return lv24, y2
+        modes, uvmodes, is_i4, i4_modes, seg_map, _, _, qtabs, _ = p1
+        return P2K.phase2_pack(Yb, Ub, Vb, modes, uvmodes, is_i4, i4_modes,
+                               seg_map, qtabs, self.rd_drop, self.esc_cap)
 
     def __call__(self, Yb, Ub, Vb):
         """Yb [B, H, W], Ub/Vb [B, H/2, W/2] u8 -> field dict [B, ...]."""
         p1 = self.part1_batched(Yb, Ub, Vb)
-        return self.pack(*self.phase2(Yb, Ub, Vb, p1), p1)
+        return self.pack(self.phase2(Yb, Ub, Vb, p1), p1)
 
-    def pack(self, lv24, y2, p1):
-        """Nibble packing, escape list and the per-MB side fields ->
+    def pack(self, wire, p1):
+        """The wire fields of phase2 plus the per-MB side fields of p1 ->
         field dict [B, ...]."""
         (modes, uvmodes, is_i4, i4_modes, seg_map, seg_q, seg_beta,
          _, dq_uv_b) = p1
-        packed, esc_idx, esc_val, esc_cnt = _pack_levels(lv24, self.esc_cap)
-        skip = (lv24 == 0).all(dim=-1).all(dim=-1) & (y2 == 0).all(dim=-1)
-        B = lv24.shape[0]
+        B = modes.shape[0]
         imodes = torch.where(
             is_i4[..., None], i4_modes,
             torch.cat([modes[..., None],
                        modes.new_zeros((B, self.n_mb, 15))], dim=-1))
-        return {"packed": packed, "esc_idx": esc_idx, "esc_val": esc_val,
-                "esc_cnt": esc_cnt, "y2": y2, "modes": modes,
-                "uvmodes": uvmodes, "skip": skip, "is_i4": is_i4,
-                "imodes": imodes, "seg_map": seg_map.to(torch.uint8),
-                "seg_q": seg_q, "seg_beta": seg_beta, "dq_uv": dq_uv_b}
+        return dict(wire, modes=modes, uvmodes=uvmodes, is_i4=is_i4,
+                    imodes=imodes, seg_map=seg_map.to(torch.uint8),
+                    seg_q=seg_q, seg_beta=seg_beta, dq_uv=dq_uv_b)
+
+    def blob(self, Yb, Ub, Vb):
+        """YUV 4:2:0 planes (u8 [B, H, W], [B, H/2, W/2]) on the device ->
+        blob chunks."""
+        return _blobify(self(Yb, Ub, Vb))
 
     def rgb_blob(self, rgbs):
         """rgbs: uint8 [B, H, W, 3] on the device -> blob chunks."""

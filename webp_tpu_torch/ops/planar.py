@@ -6,7 +6,9 @@ the leading axes, so every butterfly, zigzag or context slice is a slice
 of a leading axis. The integer math is the reference's, op for op.
 
 phase2_planar is the skew-1 wavefront written as a Python step loop over
-the n_steps = mb_w + mb_h - 1 anti-diagonals (the reference's lax.scan).
+the n_steps = mb_w + mb_h - 1 anti-diagonals (the reference's lax.scan);
+it is the plain version of kernel 4 (ops/p2_kernel.py), which runs the
+wavefront on the card.
 Only the configuration of the batched main path is ported: skew 1, no
 trellis, no in-loop search, segments and the I4 walk on.
 """
