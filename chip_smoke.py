@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
   1. The card's name and power limit (nvidia-smi) and torch's device name.
   2. Builds the four CUDA kernels (nvcc, sm_90a) and the host library
      (entropy coder and YUV importer, g++) from the checkout's sources, all
-     compilers at once.
+     compilers at once, and prints each kernel's registers, shared memory
+     and spills as ptxas reported them.
   3. The main path, counted: webp_tpu_torch.encode_batch on B=16 synthetic
      1536x1024 images (made from --seed), with every kernel's launch count
      set to 0 just before and read just after; each kernel must have run
@@ -18,8 +19,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      tensors: decisions, alphas and every phase-2 output exact, f32 scores
      within rtol 3e-7. Median kernel time (CUDA events), plain-version time
      (one run of the phase-2 step loop, which takes seconds) and the bound
-     with its basis; the phase-2 kernel's launch alone, without its
-     escape-list compaction, per anti-diagonal step.
+     with its basis; the phase-2 kernel's cluster size, block count and
+     time per anti-diagonal step, and its time on the first image alone
+     (one cluster on an otherwise idle card: the chain of steps).
   5. Throughput: end to end (numpy images in, WebP bytes out) and
      device-compute only (.rgbp_blob with the planes resident), encode_batch
      split into its device round trip and its host tail, the device time
@@ -304,6 +306,13 @@ def main(argv=None):
     spent = _build.build(["webp_enc"] + list(_build.KERNEL_LIBS))
     print(f"build: {time.perf_counter() - t0:.1f} s wall; per library "
           + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()), flush=True)
+    for lib in _build.KERNEL_LIBS:
+        for f in _build.ptxas_facts(lib):
+            print(f"ptxas {lib}: {f['registers']} registers, {f['smem']} "
+                  f"bytes static shared memory, {f['stack']} bytes stack, "
+                  f"{f['spill_stores']} bytes spill stores, "
+                  f"{f['spill_loads']} bytes spill loads ({f['entry']})",
+                  flush=True)
 
     rng = np.random.default_rng(args.seed)
     imgs = synth_images(rng, B, H, W)
@@ -367,11 +376,19 @@ def main(argv=None):
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
-    # The phase-2 launch alone (no escape-list compaction), per step.
-    launch_ms = time_ms(lambda: P2K.wavefront(*p_args[:10]), 20)
-    print(f"kernel p2_wavefront: bare launch {launch_ms:.3f} ms, "
-          f"{launch_ms / steps:.4f} ms per anti-diagonal step "
-          f"({steps} steps); {n_i4} of {L} MBs are I4", flush=True)
+    # The phase-2 kernel per anti-diagonal step, and on the first image
+    # alone (one cluster: the same chain of steps with the card otherwise
+    # idle, the kernel's dependency floor as measured).
+    p2_ms = kernels[-1]["ms"]
+    C = P2K.cluster_size(B, H // 16, P2K.sm_count(dev))
+    one = tuple(a[:1] for a in p_args[:9]) + tuple(p_args[9:])
+    one_ms = time_ms(lambda: P2K.wavefront(*one), 20)
+    print(f"kernel p2_wavefront: cluster size {C}, {B * C} blocks of "
+          f"{P2K.THREADS} threads; {p2_ms:.3f} ms, "
+          f"{p2_ms / steps:.4f} ms per anti-diagonal step "
+          f"({steps} steps); {n_i4} of {L} MBs are I4; image 0 alone "
+          f"(cluster size {P2K.cluster_size(1, H // 16, P2K.sm_count(dev))}) "
+          f"{one_ms:.3f} ms, {one_ms / steps:.4f} ms per step", flush=True)
 
     # 5. Throughput and where the device time goes.
     px = B * W * H

@@ -131,20 +131,14 @@ def _outputs(x):
     return list(x.values()) if isinstance(x, dict) else list(x)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("geom", [(64, 48, 2), (16, 64, 2), (64, 16, 2),
-                                  (1536, 1024, 16)])
-def test_phase2_kernel_on_random_modes_equals_plain_version(geom):
-    """Kernel 4 against its plain version on modes, I4 splits, I4 modes and
-    segments drawn at random (every predictor on every edge), at a one-MB
-    column, a one-MB row and the main path's size: every output equal."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def _hold_phase2(W, H, B, split=None):
     from webp_tpu_torch.ops import cuda
     from webp_tpu_torch.ops import p2_kernel as P2K
 
-    W, H, B = geom
-    args = p2_args(p2_inputs(B, W, H, W + H), "cuda")
+    d = p2_inputs(B, W, H, W + H + B)
+    if split is not None:
+        d["is_i4"][:] = split == "i4"
+    args = p2_args(d, "cuda")
     cuda.reset_launches()
     got = P2K.phase2_pack(*args, 1024.0, 1024)
     assert cuda.LAUNCHES["p2_wavefront"] == 1
@@ -152,6 +146,73 @@ def test_phase2_kernel_on_random_modes_equals_plain_version(geom):
     assert list(got) == list(ref)
     for k in ref:
         assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(64, 48, 2), (16, 64, 2), (64, 16, 2),
+                                  (1536, 1024, 16), (64, 48, 3),
+                                  (48, 144, 2), (48, 144, 1), (48, 144, 3)])
+def test_phase2_kernel_on_random_modes_equals_plain_version(geom):
+    """Kernel 4 against its plain version on modes, I4 splits, I4 modes and
+    segments drawn at random (every predictor on every edge), at a one-MB
+    column, a one-MB row, the main path's size, and 9 MB rows (not a
+    multiple of the cluster size) at B = 1, 2 and 3; the cluster sizes are
+    1 (64x16), 2 (64x48), 4 (16x64) and 8 (the rest): every output
+    equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _hold_phase2(*geom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["i4", "i16"])
+@pytest.mark.parametrize("geom", [(64, 48, 3), (48, 144, 1),
+                                  (1536, 1024, 16)])
+def test_phase2_kernel_all_i4_or_all_i16_equals_plain_version(geom, split):
+    """Kernel 4 with every MB I4 (the walk on every MB of every step) or
+    every MB I16: every output equal to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _hold_phase2(*geom, split=split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_td", [False, True])
+def test_mode_search_kernel_at_a_ragged_lane_count(use_td):
+    """Kernel 2 against its plain version at L = 21 lanes (3 images of 7
+    MBs; not a multiple of its 16 MBs per block) on random sources and
+    contexts: modes equal, scores within rtol 3e-7."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import cuda
+    from webp_tpu_torch.ops import fastpath as FP
+    from webp_tpu_torch.ops import p1_kernels as P1K
+
+    rng = np.random.default_rng(5)
+    B, n_mb = 3, 7
+    L = B * n_mb
+    src = rng.integers(0, 256, (P1K.N_SRC, L))
+    ctx = rng.integers(0, 256, (P1K.N_CTX, L))
+    ctx[P1K.C_HT] = rng.integers(0, 2, L)
+    ctx[P1K.C_HL] = rng.integers(0, 2, L)
+    ctx[P1K.C_SEG] = rng.integers(0, 4, L)
+    tabs = FP.all_q_tables()[0]
+    seg_q = rng.integers(10, 120, (B, 4))
+    qtab = np.stack([tabs[k][seg_q] for k in ("y1", "y2", "uv")],
+                    axis=1).reshape(B, 48, 16)
+    lams = rng.uniform(1.0, 400.0, (B, 16))
+    dev = torch.device("cuda")
+    args = (torch.as_tensor(src.astype(np.uint8)).to(dev),
+            torch.as_tensor(ctx.astype(np.uint8)).to(dev),
+            torch.as_tensor(qtab.astype(np.int32)).to(dev),
+            torch.as_tensor(lams.astype(np.float32)).to(dev),
+            FP.device_tables(dev).rate_consts, n_mb, use_td)
+    cuda.reset_launches()
+    got = P1K.mode_search(*args)
+    assert cuda.LAUNCHES["p1_mode"] == 1
+    ref = P1K.mode_search_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[2], ref[2], rtol=3e-7, atol=0)
 
 
 @pytest.mark.cuda

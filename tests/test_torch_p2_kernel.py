@@ -17,6 +17,7 @@ from test_torch_cuda import p2_args as _args
 from test_torch_cuda import p2_inputs as _inputs
 from webp_tpu.ops import fastpath as FP_ref
 from webp_tpu.ops import planar as PL_ref
+from webp_tpu_torch.ops import planar as PL
 from webp_tpu_torch.ops import cuda
 from webp_tpu_torch.ops import p2_kernel as P2K
 
@@ -108,6 +109,7 @@ def test_card_tensors_reach_the_kernel_never_the_step_loop(monkeypatch):
         cuda.LAUNCHES[name] += 1
 
     monkeypatch.setattr(P2K, "phase2_planar", loop)
+    monkeypatch.setattr(P2K, "sm_count", lambda dev: 132)
     monkeypatch.setattr(cuda, "on_cpu", lambda *t: False)
     monkeypatch.setattr(cuda, "launch", launch)
     cuda.reset_launches()
@@ -115,3 +117,43 @@ def test_card_tensors_reach_the_kernel_never_the_step_loop(monkeypatch):
     assert calls == ["p2_wavefront"] and cuda.LAUNCHES["p2_wavefront"] == 1
     assert set(out) == {"packed", "esc_idx", "esc_val", "esc_cnt", "y2",
                         "skip"}
+
+
+@pytest.mark.parametrize("B", [1, 3, 16, 128, 200])
+@pytest.mark.parametrize("mb_h", [1, 4, 64])
+def test_cluster_size_fills_the_card_within_its_limits(B, mb_h):
+    """Blocks per image: a power of two, at most 8 and at most mb_h; with
+    more than one, B * C blocks fit the 132 SMs; and no larger power of
+    two would qualify."""
+    C = P2K.cluster_size(B, mb_h, 132)
+    assert C in (1, 2, 4, 8) and C <= mb_h
+    if C > 1:
+        assert B * C <= 132
+    if C < 8:
+        assert 2 * C > mb_h or B * 2 * C > 132
+    assert P2K.cluster_size(16, 64, 132) == 8
+    assert P2K.cluster_size(128, 64, 132) == 1
+
+
+def test_i4_tap_table_equals_the_i4_predictors():
+    """The kernel's per-pixel tap table reproduces all 10 I4 predictors of
+    the plain version (planar.pred4_all_p) on random contours, saturated
+    ones included."""
+    rng = np.random.default_rng(3)
+    e = rng.integers(0, 256, (13, 3000))
+    e[:, :100] = rng.integers(250, 256, (13, 100))
+    e[:, 100:200] = rng.integers(0, 6, (13, 100))
+    t = torch.as_tensor(e[5:9])
+    l = torch.as_tensor(e[3::-1].copy())
+    ref = torch.stack(PL.pred4_all_p(t, l, torch.as_tensor(e[4]),
+                                     torch.as_tensor(e[9:13]))).numpy()
+    taps = P2K.i4_taps().astype(np.int64)
+    ops = taps >> 12
+    i0, i1, i2 = (e[(taps >> s) & 15] for s in (0, 4, 8))  # [10, 16, N]
+    dc = (e[[0, 1, 2, 3, 5, 6, 7, 8]].sum(0) + 4) >> 3
+    got = np.select([ops[..., None] == k for k in range(4)],
+                    [(i0 + 2 * i1 + i2 + 2) >> 2, (i0 + i1 + 1) >> 1,
+                     np.clip(i0 + i1 - i2, 0, 255),
+                     np.broadcast_to(dc, i0.shape)])
+    np.testing.assert_array_equal(got, ref.reshape(10, 16, -1))
+

@@ -20,6 +20,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,8 +33,11 @@ BUILD_DIR = os.path.join(HERE, "_build")
 # keeps every float multiply-add uncontracted unless the source asks for
 # __fmaf_rn explicitly (the kernels match the reference's rounding op by
 # op; see csrc/common.cuh).
+# -Xptxas -v prints each kernel's registers, shared memory and spills; the
+# log is kept beside the library (ptxas_facts reads it).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC"]
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 # name -> (compiler, sources relative to the package, headers it includes)
@@ -128,6 +132,8 @@ def build(names) -> dict:
             log, _ = proc.communicate()
             spent[name] = time.perf_counter() - t0
             if proc.returncode == 0:
+                with open(path + ".log", "w") as f:
+                    f.write(log)
                 os.replace(tmp, path)
             else:
                 errors.append(f"{name}: exit {proc.returncode}\n{log}")
@@ -142,6 +148,32 @@ def build(names) -> dict:
     if errors:
         raise RuntimeError("build failed:\n" + "\n".join(errors))
     return spent
+
+
+def ptxas_facts(name: str) -> list:
+    """What ptxas reported for each kernel of the built library `name`:
+    [{"entry", "registers", "smem", "stack", "spill_stores",
+    "spill_loads"}] (bytes; smem is the static shared memory, a kernel's
+    dynamic shared memory is set at launch)."""
+    with open(lib_path(name) + ".log") as f:
+        log = f.read()
+    facts, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"entry": m.group(1), "registers": 0, "smem": 0,
+                   "stack": 0, "spill_stores": 0, "spill_loads": 0}
+            facts.append(cur)
+        elif cur is not None:
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    cur[key] = int(m.group(1))
+    return facts
 
 
 def load(name: str) -> ctypes.CDLL:

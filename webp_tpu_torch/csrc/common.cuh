@@ -64,6 +64,11 @@ __device__ __forceinline__ int zigzag_pos(int zz) {
   return (int)((0xFEB7ADC963258410ull >> (4 * zz)) & 15);
 }
 
+// Zigzag index of raster position p (the inverse of zigzag_pos).
+__device__ __forceinline__ int zigzag_index(int p) {
+  return (int)((0xFEA9DB83C7426510ull >> (4 * p)) & 15);
+}
+
 // One pixel of the I16 and chroma predictors (modes DC, TM, V, H) from the
 // masked contour: the left pixel of its row, the top pixel of its column
 // and the corner.
@@ -284,6 +289,12 @@ __device__ __forceinline__ int hadamard_w(const int* x) {
 // iq, bias and sharpen follow at +16, +32, +48 (zigzag columns). rcp is
 // the rate-constant block of the coefficient type. With dq != nullptr the
 // signed dequantized values are stored at their raster positions.
+// kFolded: the zigzag positions fold to constants, so that co and dq stay
+// in registers, and qr is read with plain loads (it may point at shared
+// memory; p1_mode). Otherwise the positions come from kZigzag, which puts
+// the arrays in local memory and keeps the caller's registers low, and qr
+// is read through the read-only cache (i4_search).
+template <bool kFolded>
 __device__ __forceinline__ int quant_rate(const int* co,
                                           const int* __restrict__ qr,
                                           int first, const int* rcp, int* dq,
@@ -293,13 +304,14 @@ __device__ __forceinline__ int quant_rate(const int* co,
 #pragma unroll
   for (int zz = 0; zz < 16; ++zz) {
     if (zz < first) continue;
-    const int p = kZigzag[zz];
+    const int p = kFolded ? zigzag_pos(zz) : kZigzag[zz];
+    auto q_at = [&](int i) { return kFolded ? qr[i] : __ldg(qr + i); };
     const int c = co[p];
     const int ac = abs(c);
-    const int mag = ac + __ldg(qr + 48 + zz);
-    int level = (mag * __ldg(qr + 16 + zz) + __ldg(qr + 32 + zz)) >> QFIX;
+    const int mag = ac + q_at(48 + zz);
+    int level = (mag * q_at(16 + zz) + q_at(32 + zz)) >> QFIX;
     level = level < MAX_LEVEL ? level : MAX_LEVEL;
-    const int dqz = level * __ldg(qr + zz);
+    const int dqz = level * q_at(zz);
     if (dq != nullptr) dq[p] = c < 0 ? -dqz : dqz;
     const int e = ac - dqz;
     disto += e * e;
@@ -333,6 +345,32 @@ __device__ __forceinline__ float trellis_lambda(const int* qr) {
   return __fmul_rn(__fmul_rn(base, base), 0.25f);
 }
 
+// The trellis-lite drop test of a level of 1 (quantize_rd below): 256 * wt
+// * (c^2 - (c - q)^2) < rd * tlam, c the magnitude after sharpening, every
+// float operation rounded as the plain version's separate operations.
+__device__ __forceinline__ bool rd_drops(int mag, int q, float wt, float rd,
+                                         float tlam) {
+  const float c0 = __int2float_rn(mag), qf = __int2float_rn(q);
+  const float e = __fsub_rn(c0, qf);
+  const float dd =
+      __fmul_rn(wt, __fsub_rn(__fmul_rn(c0, c0), __fmul_rn(e, e)));
+  return __fmul_rn(256.0f, dd) < __fmul_rn(rd, tlam);
+}
+
+// The signed level of one raster coefficient c from its zigzag position's
+// quantizer entries and trellis weight wt (quantize_rd below, for one
+// coefficient), without a branch: the drop test runs on every lane.
+__device__ __forceinline__ int quantize_level(int c, int q, int iq, int bias,
+                                              int sharpen, float wt, float rd,
+                                              float tlam) {
+  const int mag = abs(c) + sharpen;
+  int level = (mag * iq + bias) >> QFIX;
+  level = level < MAX_LEVEL ? level : MAX_LEVEL;
+  const bool drop = rd_drops(mag, q, wt, rd, tlam);
+  level = ((rd > 0.0f) & (level == 1) & drop) ? 0 : level;
+  return c < 0 ? -level : level;
+}
+
 // Quantizes raster coefficients co[16] with the quantizer rows at qr (q,
 // iq, bias and sharpen at +0, +16, +32, +48; zigzag columns) into signed
 // zigzag levels lv[16] and signed raster dequantized values dq[16]
@@ -352,13 +390,8 @@ __device__ __forceinline__ void quantize_rd(const int* co, const int* qr,
     const int mag = abs(c) + qr[48 + zz];
     int level = (mag * qr[16 + zz] + qr[32 + zz]) >> QFIX;
     level = level < MAX_LEVEL ? level : MAX_LEVEL;
-    if (rd > 0.0f && level == 1) {
-      const float c0 = __int2float_rn(mag), qf = __int2float_rn(q);
-      const float e = __fsub_rn(c0, qf);
-      const float dd = __fmul_rn(
-          kTrellisW[zz], __fsub_rn(__fmul_rn(c0, c0), __fmul_rn(e, e)));
-      if (__fmul_rn(256.0f, dd) < __fmul_rn(rd, tlam)) level = 0;
-    }
+    if (rd > 0.0f && level == 1 && rd_drops(mag, q, kTrellisW[zz], rd, tlam))
+      level = 0;
     if (zz < first) level = 0;
     const int s = c < 0 ? -level : level;
     lv[zz] = s;

@@ -78,7 +78,7 @@ i4_search_kernel(const uint8_t* __restrict__ data, const int* __restrict__ qtab,
     for (int p = 0; p < 16; ++p) d[p] = src[p] - pred[p];
     wtk::fdct4x4(d, co);
     int disto = 0;
-    const int rate = wtk::quant_rate(co, qr, 0, rcp, dq, disto);
+    const int rate = wtk::quant_rate<false>(co, qr, 0, rcp, dq, disto);
     const float rate_m = __int2float_rn(rate + rc[wtk::RC_I4MODE + mode]);
     int td = -1;
     if (use_td) {

@@ -25,9 +25,14 @@
 // are gathered with half-warp shuffles (every thread then runs the small
 // y2 transform itself, so no thread waits on another); per-MB rate,
 // distortion and texture sums are half-warp integer reductions, whose
-// order is free. Source and context rows are staged once per block through
-// shared memory with lane-contiguous loads; the rate constants live in
-// shared memory. Float scores use __fmul_rn/__fadd_rn only.
+// order is free. The chroma search runs its 8 blocks x 4 modes on all 16
+// threads (two modes each), its per-mode sums combined by shuffles. Source
+// and context rows are staged once per block through shared memory with
+// lane-contiguous loads, the source one MB per row so that a thread reads
+// its block with one 16-byte load; each MB's quant rows and the rate
+// constants are staged there too, and the zigzag positions fold to
+// constants (quant_rate<true>), so the coefficient arrays stay in
+// registers. Float scores use __fmul_rn/__fadd_rn only.
 
 #include <math.h>
 
@@ -43,8 +48,22 @@ constexpr int C_TOPY = 0, C_LEFTY = 16, C_TLY = 32;
 constexpr int C_TOPU = 33;  // U rows: top 33, left 41, tl 49
 constexpr int C_PLANE_UV = 17;  // V rows follow at +17: top 50, left 58, tl 66
 constexpr int C_HT = 67, C_HL = 68, C_SEG = 69;
+// 16 bytes of shared memory (16-byte aligned) into v[16].
+__device__ __forceinline__ void load16(const uint8_t* p, int* v) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = (u[k >> 2] >> (8 * (k & 3))) & 0xFF;
+}
+
 constexpr int MB_PER_BLOCK = 16;
 constexpr int THREADS = MB_PER_BLOCK * 16;
+// The source tile holds one MB per row (a thread reads its 16 pixels with
+// one 16-byte load); the quant rows one MB per row as well: its segment's
+// y1, y2 and uv rows (q, iq, bias, sharpen; 192 ints), padded so that the
+// two MBs of a warp read different banks.
+constexpr int SRC_STRIDE = N_SRC + 16;
+constexpr int Q_STRIDE = 208;
 
 __global__ void __launch_bounds__(THREADS)
 p1_mode_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ ctx,
@@ -53,20 +72,28 @@ p1_mode_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ ctx,
                int* __restrict__ mode_out, int* __restrict__ uv_out,
                float* __restrict__ score_out) {
   __shared__ int rc[wtk::RC_SIZE];
-  __shared__ uint8_t s_src[N_SRC][MB_PER_BLOCK];
+  __shared__ __align__(16) uint8_t s_src[MB_PER_BLOCK][SRC_STRIDE];
   __shared__ uint8_t s_ctx[N_CTX][MB_PER_BLOCK];
+  __shared__ int s_q[MB_PER_BLOCK][Q_STRIDE];
   const int tid = threadIdx.x;
   const int lane0 = blockIdx.x * MB_PER_BLOCK;
   for (int i = tid; i < wtk::RC_SIZE; i += THREADS) rc[i] = rc_g[i];
   for (int i = tid; i < N_SRC * MB_PER_BLOCK; i += THREADS) {
     const int r = i / MB_PER_BLOCK, m = i % MB_PER_BLOCK;
     const int l = lane0 + m;
-    s_src[r][m] = l < L ? src[(size_t)r * L + l] : 0;
+    s_src[m][r] = l < L ? src[(size_t)r * L + l] : 0;
   }
   for (int i = tid; i < N_CTX * MB_PER_BLOCK; i += THREADS) {
     const int r = i / MB_PER_BLOCK, m = i % MB_PER_BLOCK;
     const int l = lane0 + m;
     s_ctx[r][m] = l < L ? ctx[(size_t)r * L + l] : 0;
+  }
+  for (int i = tid; i < 192 * MB_PER_BLOCK; i += THREADS) {
+    const int m = i / 192, k = i % 192;
+    const int l = min(lane0 + m, L - 1);
+    const int seg = ctx[(size_t)C_SEG * L + l] & 3;
+    s_q[m][k] = qtab[(size_t)(l / n_mb) * 48 * 16 +
+                     ((k >> 6) * 16 + seg * 4) * 16 + (k & 63)];
   }
   __syncthreads();
 
@@ -77,10 +104,9 @@ p1_mode_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ ctx,
   const int lane = lane0 + m;
   const int img = (lane < L ? lane : L - 1) / n_mb;
   const int seg = s_ctx[C_SEG][m] & 3;
-  const int* qt = qtab + (size_t)img * 48 * 16;
-  const int* q_y1 = qt + (0 * 16 + seg * 4) * 16;
-  const int* q_y2 = qt + (1 * 16 + seg * 4) * 16;
-  const int* q_uv = qt + (2 * 16 + seg * 4) * 16;
+  const int* q_y1 = s_q[m];
+  const int* q_y2 = s_q[m] + 64;
+  const int* q_uv = s_q[m] + 128;
   const float* lam = lams + (size_t)img * 16;
   const float lam16 = lam[seg], lamuv = lam[4 + seg], tlsd = lam[8 + seg],
               lammd = lam[12 + seg];
@@ -107,8 +133,7 @@ p1_mode_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ ctx,
     lv[k] = hl ? s_ctx[C_LEFTY + br * 4 + k][m] : 129;
   }
   int sblk[16];
-#pragma unroll
-  for (int p = 0; p < 16; ++p) sblk[p] = s_src[R_SRCY + b * 16 + p][m];
+  load16(&s_src[m][R_SRCY + b * 16], sblk);
   const int ha_src = use_td ? wtk::hadamard_w(sblk) : 0;
 
   float best_score = INFINITY, best_rate = 0.f, best_D = 0.f;
@@ -127,7 +152,7 @@ p1_mode_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ ctx,
     wtk::fdct4x4(d, co);
     int disto_b = 0;
     const int rate_b =
-        wtk::quant_rate(co, q_y1, 1, rc + 0 * wtk::RC_PT, dq, disto_b);
+        wtk::quant_rate<true>(co, q_y1, 1, rc + 0 * wtk::RC_PT, dq, disto_b);
     // y2: gather the 16 DCs, WHT, quantize, inverse WHT (every thread).
     int dcs[16], wht[16], y2dq[16], rec_dc[16];
 #pragma unroll
@@ -135,7 +160,7 @@ p1_mode_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ ctx,
     wtk::fwht4x4(dcs, wht);
     int unused = 0;
     const int rate_y2 =
-        wtk::quant_rate(wht, q_y2, 0, rc + 1 * wtk::RC_PT, y2dq, unused);
+        wtk::quant_rate<true>(wht, q_y2, 0, rc + 1 * wtk::RC_PT, y2dq, unused);
     wtk::iwht4x4(y2dq, rec_dc);
     int my_rec_dc = 0;
 #pragma unroll
@@ -166,54 +191,69 @@ p1_mode_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ ctx,
   }
 
   // ------------------------------------------------------------------
-  // Chroma: threads 0-3 take U blocks 0-3, threads 4-7 V blocks 0-3.
+  // Chroma: 8 blocks x 4 modes on the 16 threads. Thread b takes block
+  // b & 7 (U blocks 0-3, then V blocks 0-3) under modes 0 and 1 (b < 8) or
+  // 2 and 3; each mode's rate and distortion are summed over its 8 threads
+  // and swapped across the halves, and the winner is taken in mode order.
   // ------------------------------------------------------------------
-  const int plane = b >> 2, j = b & 3;
+  const int blk = b & 7, half = b >> 3;
+  const int plane = blk >> 2, j = blk & 3;
   const int cbr = j >> 1, cbc = j & 1;
   const int c0 = C_TOPU + plane * C_PLANE_UV;
-  int ctv[4], clv[4], cdc = 0, ctl = 0;
+  int ctv[4], clv[4];
+  int st = 0, sl = 0;
+  for (int k = 0; k < 8; ++k) {
+    st += ht ? s_ctx[c0 + k][m] : 127;
+    sl += hl ? s_ctx[c0 + 8 + k][m] : 129;
+  }
+  const int cdc = (ht && hl) ? (st + sl + 8) >> 4
+                  : ht       ? (st + 4) >> 3
+                  : hl       ? (sl + 4) >> 3
+                             : 0x80;
+  const int ctl = (ht && hl) ? (int)s_ctx[c0 + 16][m] : (ht ? 129 : 127);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    ctv[k] = ht ? s_ctx[c0 + cbc * 4 + k][m] : 127;
+    clv[k] = hl ? s_ctx[c0 + 8 + cbr * 4 + k][m] : 129;
+  }
   int csrc[16];
-  if (b < 8) {
-    int st = 0, sl = 0;
-    for (int k = 0; k < 8; ++k) {
-      st += ht ? s_ctx[c0 + k][m] : 127;
-      sl += hl ? s_ctx[c0 + 8 + k][m] : 129;
-    }
-    cdc = (ht && hl) ? (st + sl + 8) >> 4
-          : ht       ? (st + 4) >> 3
-          : hl       ? (sl + 4) >> 3
-                     : 0x80;
-    ctl = (ht && hl) ? (int)s_ctx[c0 + 16][m] : (ht ? 129 : 127);
+  load16(&s_src[m][R_SRCU + blk * 16], csrc);
+  int rate_m[4], disto_m[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      ctv[k] = ht ? s_ctx[c0 + cbc * 4 + k][m] : 127;
-      clv[k] = hl ? s_ctx[c0 + 8 + cbr * 4 + k][m] : 129;
-    }
+  for (int mm = 0; mm < 2; ++mm) {
+    const int mode = half * 2 + mm;
+    int d[16], co[16];
 #pragma unroll
-    for (int p = 0; p < 16; ++p) csrc[p] = s_src[R_SRCU + b * 16 + p][m];
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        d[r * 4 + c] =
+            csrc[r * 4 + c] - wtk::pred_dtvh(mode, cdc, clv[r], ctv[c], ctl);
+      }
+    }
+    wtk::fdct4x4(d, co);
+    int disto_b = 0;
+    int rate_b = wtk::quant_rate<true>(co, q_uv, 0, rc + 2 * wtk::RC_PT, nullptr,
+                                 disto_b);
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      rate_b += __shfl_xor_sync(0xffffffffu, rate_b, o);
+      disto_b += __shfl_xor_sync(0xffffffffu, disto_b, o);
+    }
+    const int rate_o = __shfl_xor_sync(0xffffffffu, rate_b, 8);
+    const int disto_o = __shfl_xor_sync(0xffffffffu, disto_b, 8);
+    rate_m[mm] = half ? rate_o : rate_b;
+    rate_m[2 + mm] = half ? rate_b : rate_o;
+    disto_m[mm] = half ? disto_o : disto_b;
+    disto_m[2 + mm] = half ? disto_b : disto_o;
   }
   float best_uv_score = INFINITY;
   int best_uv = 0;
+#pragma unroll
   for (int mode = 0; mode < 4; ++mode) {
-    int rate_b = 0, disto_b = 0;
-    if (b < 8) {
-      int d[16], co[16];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          d[r * 4 + c] =
-              csrc[r * 4 + c] - wtk::pred_dtvh(mode, cdc, clv[r], ctv[c], ctl);
-        }
-      }
-      wtk::fdct4x4(d, co);
-      rate_b = wtk::quant_rate(co, q_uv, 0, rc + 2 * wtk::RC_PT, nullptr,
-                               disto_b);
-    }
-    const int rate = rc[wtk::RC_FCUV + mode] + wtk::sum16(rate_b);
-    const int disto = wtk::sum16(disto_b);
+    const int rate = rc[wtk::RC_FCUV + mode] + rate_m[mode];
     const float score = wtk::rd_score(__int2float_rn(rate), lamuv,
-                                      wtk::rd_disto(disto, 0.f, -1));
+                                      wtk::rd_disto(disto_m[mode], 0.f, -1));
     if (score < best_uv_score) {
       best_uv_score = score;
       best_uv = mode;

@@ -65,9 +65,13 @@ SIGNATURES = {
     "p1_alpha": (_P, _I, _P, _P),
     "p1_mode": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "i4_search": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
-    "p2_wavefront": (_P,) * 9 + (_I,) * 3 + (_F,) * 2 + (_P,) * 8,
+    "p2_wavefront": (_P,) * 10 + (_I,) * 5 + (_F,) * 2 + (_P,) * 8,
 }
 _fns: dict = {}
+
+# Codes a launcher returns for a refusal of its own, below CUDA's range.
+LAUNCHER_ERRORS = {-1: "a thread block cluster that cannot be resident on "
+                       "this device"}
 
 
 def _launcher(name: str):
@@ -95,6 +99,6 @@ def launch(name: str, *args) -> None:
                    else float(a) if t is _F else int(a)
                    for a, t in zip(args, SIGNATURES[name])], stream)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name}: kernel launch failed with "
+                           + LAUNCHER_ERRORS.get(err, f"CUDA error {err}"))
     LAUNCHES[name] += 1

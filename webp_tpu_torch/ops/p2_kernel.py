@@ -28,10 +28,11 @@ this format keeps the card's files byte-identical to the CPU's.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import cuda
-from .fastpath import _pack_levels, escape_list
+from .fastpath import _pack_levels
 from .planar import phase2_planar
 
 
@@ -57,8 +58,9 @@ def phase2_pack_plain(Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map,
 def phase2_pack(Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map, qtab,
                 rd_drop: float, esc_cap: int):
     """Phase 2 and the pack over a batch: the CUDA kernel (one launch for
-    the whole wavefront) for CUDA tensors, the plain version for CPU
-    tensors. Returns the wire dict (module docstring)."""
+    the whole wavefront, then its escape-list kernel) for CUDA tensors, the
+    plain version for CPU tensors. Returns the wire dict (module
+    docstring)."""
     cuda.check("Y", Y, torch.uint8, (None, None, None))
     B, H, W = Y.shape
     if B == 0 or H % 16 or W % 16 or H == 0 or W == 0:
@@ -77,29 +79,104 @@ def phase2_pack(Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map, qtab,
     args = (Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map, qtab)
     if cuda.on_cpu(*args):
         return phase2_pack_plain(*args, rd_drop, esc_cap)
-    packed, levels, y2, bitmap, skip = wavefront(*args, rd_drop)
-    bit = torch.arange(24, dtype=torch.int32, device=Y.device)
-    flags = ((bitmap[..., None] >> bit) & 1).bool().reshape(B, n_mb * 24)
-    return _wire(packed, *escape_list(flags, levels, esc_cap), y2,
-                 skip.bool())
+    return _wire(*wavefront(*args, rd_drop, esc_cap))
+
+
+MAX_CLUSTER = 8      # the portable thread block cluster size
+THREADS = 512        # per block in csrc/p2_wavefront.cu: 8 MB slots x 2 warps
+
+
+def cluster_size(B: int, mb_h: int, n_sm: int) -> int:
+    """Thread blocks per image of the kernel (one cluster each): the
+    largest power of two C <= 8 with B * C <= n_sm and C <= mb_h, or 1 when
+    no C > 1 qualifies. 8 at B = 16 on 132 SMs, 1 at B = 128."""
+    c = MAX_CLUSTER
+    while c > 1 and (B * c > n_sm or c > mb_h):
+        c //= 2
+    return c
+
+
+def sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def i4_taps() -> np.ndarray:
+    """The kernel's per-pixel I4 predictor table, uint16 [10, 16] (mode,
+    raster pixel r*4 + c), over the subblock's 13 contour pixels e = l3 l2
+    l1 l0 tl t0 t1 t2 t3 tr0 tr1 tr2 tr3: bits 0-3, 4-7 and 8-11 hold
+    three indices into e, bits 12-13 the operation: 0 avg3 (the middle
+    index is the centre), 1 avg2 of the first two, 2 TM (e0 + e1 - e2,
+    clamped), 3 DC. Equal to planar.pred4_all_p (tests/test_torch_p2_kernel.py)."""
+    def a3(i):                    # avg3 centred on i, clamped to e's ends
+        return (0, max(i - 1, 0), i, min(i + 1, 12))
+
+    def a2(i):
+        return (1, max(i, 0), min(i + 1, 12), 0)
+
+    def s3(k): return a3(k + 1)
+    def s2(k): return a2(k)
+    def s3h(k): return a3(3 - k)          # lr = tl l0 l1 l2 l3 l3
+    def s2h(k): return (1, 4 - k, max(3 - k, 0), 0)
+
+    l3 = (1, 0, 0, 0)                  # avg2(l3, l3)
+    tab = np.zeros((10, 16), np.uint16)
+    for r in range(4):
+        for c in range(4):
+            hd0 = [s2h(0), s3(3), s3(4), s3(5)]
+            hd1 = [s2h(1), s3h(0), hd0[0], hd0[1]]
+            hd2 = [s2h(2), s3h(1), hd1[0], hd1[1]]
+            hd3 = [s2h(3), s3h(2), hd2[0], hd2[1]]
+            hu0 = [s2h(1), s3h(1), s2h(2), s3h(2)]
+            hu1 = [hu0[2], hu0[3], s2h(3), s3h(3)]
+            hu2 = [hu1[2], hu1[3], l3, l3]
+            vr = [s2(4 + c), s3(3 + c), s3(2) if c == 0 else s2(3 + c),
+                  s3(1) if c == 0 else s3(2 + c)][r]
+            vl = [s2(5 + c), s3(5 + c), s2(6 + c) if c < 3 else s3(9),
+                  s3(6 + c) if c < 3 else s3(10)][r]
+            ops = [(3, 0, 0, 0), (2, 3 - r, 5 + c, 4), s3(4 + c), s3h(r),
+                   s3(3 - r + c), vr, s3(5 + r + c) if r + c < 6 else a3(12),
+                   vl, [hd0, hd1, hd2, hd3][r][c],
+                   [hu0, hu1, hu2, [l3] * 4][r][c]]
+            for mode, (op, i0, i1, i2) in enumerate(ops):
+                tab[mode, r * 4 + c] = op << 12 | i2 << 8 | i1 << 4 | i0
+    return tab
+
+
+_taps: dict = {}
+
+
+def _taps_on(dev) -> torch.Tensor:
+    t = _taps.get(dev)
+    if t is None:
+        t = _taps[dev] = torch.as_tensor(i4_taps().astype(np.int16)).to(dev)
+    return t
 
 
 def wavefront(Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map, qtab,
-              rd_drop: float):
+              rd_drop: float, esc_cap: int):
     """The kernel's launch alone, on card tensors that phase2_pack has
-    checked: packed u8 [B, n_mb, 24, 8], the int16 level plane [B, n_mb *
-    24, 16], y2 i16 [B, n_mb, 16], the per-MB 24-bit escape bitmap i32 and
-    skip u8 [B, n_mb]."""
+    checked: the wire fields (packed, esc_idx, esc_val, esc_cnt, y2, skip)
+    in the order of _wire. The wavefront kernel runs cluster_size(B, H /
+    16, SMs) blocks per image; its level plane and per-MB flag words stay
+    on the card for the escape-list kernel launched after it."""
     B, H, W = Y.shape
-    n_mb = (W // 16) * (H // 16)
+    mb_w, mb_h = W // 16, H // 16
+    n_mb = mb_w * mb_h
+    K = min(esc_cap, n_mb * 24)
     dev = Y.device
-    frames = (torch.empty_like(Y), torch.empty_like(U), torch.empty_like(V))
-    packed = torch.empty((B, n_mb, 24, 8), dtype=torch.uint8, device=dev)
-    levels = torch.empty((B, n_mb * 24, 16), dtype=torch.int16, device=dev)
-    y2 = torch.empty((B, n_mb, 16), dtype=torch.int16, device=dev)
-    bitmap = torch.empty((B, n_mb), dtype=torch.int32, device=dev)
-    skip = torch.empty((B, n_mb), dtype=torch.uint8, device=dev)
+    C = cluster_size(B, mb_h, sm_count(dev))
+
+    def out(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    packed, y2 = out((B, n_mb, 24, 8), torch.uint8), out((B, n_mb, 16),
+                                                          torch.int16)
+    levels, flags = out((B, n_mb * 24, 16), torch.int16), out((B, n_mb, 2),
+                                                               torch.int32)
+    esc_idx, esc_val = out((B, K), torch.int32), out((B, K, 16), torch.int16)
+    esc_cnt, skip = out((B,), torch.int32), out((B, n_mb), torch.bool)
     cuda.launch("p2_wavefront", Y, U, V, modes, uvmodes, is_i4, i4_modes,
-                seg_map, qtab, B, W // 16, H // 16, rd_drop, rd_drop * 3.5,
-                *frames, packed, levels, y2, bitmap, skip)
-    return packed, levels, y2, bitmap, skip
+                seg_map, qtab, _taps_on(dev), B, mb_w, mb_h, C, K, rd_drop,
+                rd_drop * 3.5, packed, levels, y2, flags, esc_idx, esc_val,
+                esc_cnt, skip)
+    return packed, esc_idx, esc_val, esc_cnt, y2, skip
