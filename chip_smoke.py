@@ -36,6 +36,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
      (three runs each, alternating), its files equal to encode_batch's,
      and the launches of its first run counted: each kernel once per
      batch.
+  8. The single-image entry webp_tpu_torch.encode: one 1536x1024 image at
+     the defaults (wall time, its device program, launches: each kernel
+     once); on 64x48, 72x40 and 32x16 (fewer than 4 MBs, unsegmented)
+     card files equal CPU files with method 2 (I4 off), segments=1, the
+     text and icon presets, preprocessing=2 (dithered import) and
+     ICC/EXIF/XMP metadata, with the launches each configuration implies
+     (no p1_alpha unsegmented, no i4_search with I4 off, p2_wavefront
+     once); and kernels 2, 3 and 4 against their plain versions on the
+     full-width inputs of encode() with I4 off and unsegmented.
+
+Kernel times ("ms") are the card's own (runs queued behind a sleep, CUDA
+events); each kernel's time per call from an idle card, which also
+counts the host's launch ("call_ms", the method of the kernel times
+recorded before the queued timing), is printed and recorded beside it.
 
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's route, source, the TPU kernel it replaces, launches on the main
@@ -170,6 +184,17 @@ def synth_images(rng, n, h, w):
     return out
 
 
+def alpha_edge_inputs(rng, L):
+    """Segment-alpha inputs u8 [384, L]: random rows, a flat MB in lane 0
+    and, where L > 1, a checkerboard MB in lane 1."""
+    src = rng.integers(0, 256, (384, L)).astype(np.uint8)
+    src[:, 0] = 77
+    if L > 1:
+        r, c = np.mgrid[0:4, 0:4]
+        src[:, 1] = np.tile((((r + c) % 2) * 255).reshape(16), 24)
+    return src
+
+
 def check_webp(data: bytes, w: int, h: int):
     if not (len(data) > 30 and data[:4] == b"RIFF" and data[8:12] == b"WEBP"
             and data[12:16] == b"VP8 "):
@@ -185,18 +210,32 @@ def check_webp(data: bytes, w: int, h: int):
         raise AssertionError(f"VP8 frame is {fw}x{fh}, expected {w}x{h}")
 
 
-def time_ms(fn, reps):
-    """Median milliseconds of fn() over `reps` runs, CUDA events."""
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+# Cycles of torch.cuda._sleep queued ahead of timed runs (~10 ms at the
+# H100's clock): the host enqueues every run while the card sleeps.
+SLEEP_CYCLES = 20_000_000
+
+
+def time_ms(fn, reps, queued=True):
+    """Median milliseconds of fn() over `reps` runs, CUDA events around
+    each run. queued: the runs are enqueued behind a sleep on the card, so
+    that each pair of events reads the card's time for fn's work alone;
+    otherwise each run starts from an idle card and the host's time to
+    launch fn's work counts too (the method of the earlier PRs' kernel
+    times, and the one for the plain versions, whose host launches are
+    their cost)."""
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
+    for a, b in ev:
         a.record()
         fn()
         b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        if not queued:
+            b.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
 def wall_s(fn, reps):
@@ -239,18 +278,118 @@ def hold(name, kernel, plain, args, replaces, launches, n_bytes, n_ops,
     err = max(float((g.double() - r.double()).abs().max())
               for g, r in zip(got, ref))
     ms = time_ms(lambda: kernel(*args), 20)
-    plain_ms = time_ms(lambda: plain(*args), plain_reps)
+    call_ms = time_ms(lambda: kernel(*args), 20, queued=False)
+    plain_ms = time_ms(lambda: plain(*args), plain_reps, queued=False)
     bd, by = bound_ms(n_bytes, n_ops)
     print(f"kernel {name}: {launches[name]} launch(es) on the main path; "
           f"{'exact' if not mismatches else 'DISAGREES'} (max abs err "
-          f"{err}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd:.3f} ms "
-          f"by {by} ({n_bytes} bytes, {n_ops} integer operations)",
-          flush=True)
+          f"{err}); {ms:.4f} ms on the card (runs queued), {call_ms:.4f} ms "
+          f"per call from an idle card (host launch included), plain "
+          f"{plain_ms:.3f} ms, bound {bd:.4f} ms by {by} ({n_bytes} bytes, "
+          f"{n_ops} integer operations)", flush=True)
     return dict(name=name, route="cuda",
                 source=f"webp_tpu_torch/csrc/{name}.cu", replaces=replaces,
                 launches=launches[name], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bd, bound_by=by, library_ms=None,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bd, bound_by=by, library_ms=None,
                 mismatches=mismatches)
+
+
+def hold_exact(name, kernel, plain, args):
+    """Kernel against its plain version on the same card tensors (outputs
+    equal, scores within SCORE_RTOL; raises otherwise); returns the
+    kernel's time on the card in ms."""
+    got, ref = _outputs(kernel(*args)), _outputs(plain(*args))
+    for g, r in zip(got, ref):
+        if not (torch.allclose(g, r, rtol=SCORE_RTOL, atol=0)
+                if g.is_floating_point() else torch.equal(g, r)):
+            raise AssertionError(f"{name} disagrees with its plain version")
+    return time_ms(lambda: kernel(*args), 10)
+
+
+def single_image(seed, card, hold):
+    """Phase 8: encode() at full width (time and launches), card files
+    against CPU files on small images in the unsegmented, I4-off, preset,
+    dithered and metadata configurations (launches counted per
+    configuration), and kernels 2-4 against their plain versions on the
+    full-width unsegmented and I4-off inputs."""
+    import webp_tpu_torch
+    from webp_tpu_torch.ops import cuda as KC
+    from webp_tpu_torch.ops import fastpath as FP
+    from webp_tpu_torch.ops import i4_kernel as I4K
+    from webp_tpu_torch.ops import p1_kernels as P1K
+    from webp_tpu_torch.ops import p2_kernel as P2K
+
+    rng = np.random.default_rng(seed + 4)
+    img = synth_images(rng, 1, H, W)[0]
+    KC.reset_launches()
+    data = webp_tpu_torch.encode(img)
+    launches = dict(KC.LAUNCHES)
+    check_per_batch(launches, 1, f"encode() {W}x{H} defaults")
+    check_webp(data, W, H)
+    e2e = wall_s(lambda: webp_tpu_torch.encode(img), 3)
+    fn = FP.fast_encode_fn(W // 16, H // 16, QUALITY, 4, 50, True)
+    x = torch.as_tensor(img[None]).cuda()
+    dev_s = wall_s(lambda: fn.rgb_blob(x), 3)
+    print(f"single image: encode() {W}x{H} at the defaults (method 4, 4 "
+          f"segments, SNS 50) {e2e:.4f} s wall (median of 3), "
+          f"{W * H / e2e / 1e6:.2f} Mpx/s; its device program (rgb_blob, "
+          f"B=1, input resident) {dev_s:.4f} s; {len(data)} bytes; "
+          f"launches {launches}; {card}", flush=True)
+
+    # Card files against CPU files; launches per configuration.
+    configs = {"method 2": dict(method=2), "segments=1": dict(segments=1),
+               "preset text": webp_tpu_torch.options_for_preset("text"),
+               "preset icon": webp_tpu_torch.options_for_preset("icon"),
+               "preprocessing=2": dict(preprocessing=2),
+               "ICC/EXIF/XMP": dict(iccp=b"icc", exif=b"Exif\0\0II*\0",
+                                    xmp=b"<x:xmpmeta/>")}
+    for (w, h) in ((64, 48), (72, 40), (32, 16)):
+        small = synth_images(rng, 1, h, w)[0]
+        n_mb = ((w + 15) // 16) * ((h + 15) // 16)
+        for label, opts in configs.items():
+            o = opts if isinstance(opts, webp_tpu_torch.EncoderOptions) \
+                else webp_tpu_torch.EncoderOptions(**opts)
+            want = {"p1_alpha": int(o.segments > 1 and n_mb >= 4),
+                    "p1_mode": 1, "i4_search": int(o.method >= 3),
+                    "p2_wavefront": 1}
+            KC.reset_launches()
+            on_card = webp_tpu_torch.encode(small, options=o)
+            if dict(KC.LAUNCHES) != want:
+                raise AssertionError(f"{w}x{h} {label}: launches "
+                                     f"{dict(KC.LAUNCHES)}, expected {want}")
+            if on_card != webp_tpu_torch.encode(small, device="cpu",
+                                                options=o):
+                raise AssertionError(f"{w}x{h} {label}: card and CPU "
+                                     f"files differ")
+    print("single image: card == CPU files, byte for byte, on 64x48, "
+          "72x40 and 32x16 with " + ", ".join(configs) + "; launches as "
+          "configured (no p1_alpha unsegmented, no i4_search with I4 off, "
+          "p2_wavefront once per encode)", flush=True)
+
+    # Kernels 2-4 on the full-width inputs of the new configurations.
+    for label, opts in (("I4 off (method 2)", dict(method=2)),
+                        ("unsegmented (segments=1)", dict(segments=1))):
+        with Recorder(P1K, "mode_search") as r_mode, \
+                Recorder(I4K, "i4_scores") as r_i4, \
+                Recorder(P2K, "phase2_pack") as r_p2:
+            webp_tpu_torch.encode(img, **opts)
+        times = {"p1_mode": hold("p1_mode", P1K.mode_search,
+                                 P1K.mode_search_plain, r_mode.calls[0])}
+        if r_i4.calls:
+            times["i4_search"] = hold("i4_search", I4K.i4_scores,
+                                      I4K.i4_scores_plain, r_i4.calls[0])
+        p_args = r_p2.calls[0]
+        zero = {k: not bool(p_args[i].any())
+                for k, i in (("is_i4", 5), ("seg_map", 7))}
+        if not zero["is_i4" if "method" in opts else "seg_map"]:
+            raise AssertionError(f"{label}: kernel 4's input is not zero")
+        times["p2_wavefront"] = hold("p2_wavefront", P2K.phase2_pack,
+                                     P2K.phase2_pack_plain, p_args)
+        print(f"single image {W}x{H}, {label}: exact against the plain "
+              f"versions (is_i4 all zero: {zero['is_i4']}, seg_map all "
+              f"zero: {zero['seg_map']}); ms on the card (B=1): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in times.items()) + f"; {card}",
+              flush=True)
 
 
 class Recorder:
@@ -315,6 +454,7 @@ def main(argv=None):
                   flush=True)
 
     rng = np.random.default_rng(args.seed)
+    rng_e = np.random.default_rng(args.seed + 3)
     imgs = synth_images(rng, B, H, W)
 
     # 3. The main path, counted; the kernels' card inputs are recorded.
@@ -376,6 +516,17 @@ def main(argv=None):
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
+    # The alpha kernel on its edges: a flat MB (256 luma coefficients in
+    # one bin), a checkerboard MB (bin 31), lane counts below, across and
+    # at its 64-MB tile.
+    for n in (1, 2, 17, 100, 192):
+        src = torch.as_tensor(alpha_edge_inputs(rng_e, n)).to(dev)
+        if any(not torch.equal(g, r) for g, r in
+               zip(P1K.alphas(src), P1K.alphas_plain(src))):
+            raise AssertionError(f"p1_alpha disagrees with its plain "
+                                 f"version on the edge inputs, L = {n}")
+    print("kernel p1_alpha: exact on the edge inputs (flat and "
+          "checkerboard MBs; L = 1, 2, 17, 100, 192)", flush=True)
     # The phase-2 kernel per anti-diagonal step, and on the first image
     # alone (one cluster: the same chain of steps with the card otherwise
     # idle, the kernel's dependency floor as measured).
@@ -487,6 +638,9 @@ def main(argv=None):
           f"{', '.join(f'{r:.2f}' for r in rates['batch'])} (median "
           f"{statistics.median(rates['batch']):.2f}); files equal; {card}",
           flush=True)
+
+    # 8. The single-image entry, webp_tpu_torch.encode.
+    single_image(args.seed, card, hold_exact)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

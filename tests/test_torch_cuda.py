@@ -65,11 +65,41 @@ def p2_inputs(B, W, H, seed):
                       axis=1).reshape(B, 48, 16))
 
 
+def broadcast_qtab(B, qp):
+    """qtab [B, 48, 16] (numpy) holding one set of quant rows (qp:
+    {y1/y2/uv: 4 x [16]}) for every segment and image: the unsegmented
+    configuration's."""
+    one = np.stack([np.stack([np.asarray(a) for a in qp[k]])
+                    for k in ("y1", "y2", "uv")])               # [3, 4, 16]
+    return np.broadcast_to(one[:, None], (B, 3, 4, 4, 16)).reshape(
+        B, 48, 16).astype(np.int32)
+
+
 def p2_args(d, device="cpu"):
     """phase2_pack's tensor arguments from p2_inputs' dict."""
     return tuple(torch.as_tensor(d[k]).to(device) for k in (
         "Y", "U", "V", "modes", "uvmodes", "is_i4", "i4_modes", "seg_map",
         "qtab"))
+
+
+def alpha_edge_inputs(L, seed):
+    """Segment-alpha inputs u8 [384, L] (numpy): random rows, with a flat
+    MB in lane 0 (all 256 luma coefficients in bin 0, a count no 8-bit
+    counter holds) and, where L > 1, a checkerboard MB in lane 1 (counts
+    in bin 31)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 256, (384, L)).astype(np.uint8)
+    src[:, 0] = 77
+    if L > 1:
+        r, c = np.mgrid[0:4, 0:4]
+        src[:, 1] = np.tile((((r + c) % 2) * 255).reshape(16), 24)
+    return src
+
+
+# Lane counts for the alpha kernel's edges: one MB, fewer than one 16-lane
+# load group, not a multiple of its 64-MB tile, and whole tiles (the
+# 16-byte vector loads).
+ALPHA_EDGE_L = (1, 2, 17, 100, 192)
 
 
 def test_default_device_is_the_card_and_never_falls_back():
@@ -174,6 +204,75 @@ def test_phase2_kernel_all_i4_or_all_i16_equals_plain_version(geom, split):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _hold_phase2(*geom, split=split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["unsegmented", "i4_off", "both"])
+@pytest.mark.parametrize("geom", [(64, 48, 2), (48, 144, 1), (1536, 1024, 1)])
+def test_phase2_kernel_without_segments_or_i4_equals_plain_version(geom,
+                                                                   config):
+    """Kernel 4 with a zero segment map and one set of quant rows and/or a
+    zero I4 split (the unsegmented and I4-off configurations) against its
+    plain version, at B = 2 and at B = 1, whose one image runs on a cluster
+    of 8 blocks: every output equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import cuda
+    from webp_tpu_torch.ops import p2_kernel as P2K
+    from webp_tpu_torch.ops.pipeline import quant_params
+
+    W, H, B = geom
+    d = p2_inputs(B, W, H, W + H + B + 1)
+    if config != "i4_off":
+        d["qtab"] = broadcast_qtab(B, quant_params(75))
+    args = list(p2_args(d, "cuda"))
+    if config != "unsegmented":
+        args[5], args[6] = torch.zeros_like(args[5]), torch.zeros_like(args[6])
+    if config != "i4_off":
+        args[7] = torch.zeros_like(args[7])
+    cuda.reset_launches()
+    got = P2K.phase2_pack(*args, 1024.0, 1024)
+    assert cuda.LAUNCHES["p2_wavefront"] == 1
+    ref = P2K.phase2_pack_plain(*args, 1024.0, 1024)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(method=2), dict(segments=1),
+                                  dict(sns_strength=0, filter_strength=0,
+                                       segments=2),
+                                  dict(preprocessing=2)], ids=str)
+@pytest.mark.parametrize("geom", [(72, 40), (32, 16)])
+def test_encode_on_the_card_equals_the_cpu(geom, opts):
+    """The single-image entry on the card writes the CPU run's file (I4
+    off, unsegmented, the text preset, dithered import; 32x16 has fewer
+    than 4 MBs and runs unsegmented at any setting)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w, h = geom
+    img = _images(1, h, w, seed=w + h)[0]
+    assert webp_tpu_torch.encode(img, **opts) == webp_tpu_torch.encode(
+        img, device="cpu", **opts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", ALPHA_EDGE_L)
+def test_alpha_kernel_on_edge_inputs_equals_plain_version(L):
+    """Kernel 1 against its plain version on a flat MB, a checkerboard MB
+    and random MBs, at lane counts below, across and at its tile: alphas
+    and UV alphas equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import cuda
+    from webp_tpu_torch.ops import p1_kernels as P1K
+
+    src = torch.as_tensor(alpha_edge_inputs(L, L)).to("cuda")
+    cuda.reset_launches()
+    got = P1K.alphas(src)
+    assert cuda.LAUNCHES["p1_alpha"] == 1
+    ref = P1K.alphas_plain(src)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from webp_tpu.lossy import tables as T_ref
 from webp_tpu.ops import fastpath as FP_ref
 from webp_tpu.ops import phase1p as P1_ref
 from webp_tpu.ops import planar as PL_ref
+from test_torch_cuda import ALPHA_EDGE_L, alpha_edge_inputs
 from webp_tpu_torch.ops import cuda
 from webp_tpu_torch.ops import fastpath as FP
 from webp_tpu_torch.ops import p1_kernels as K
@@ -60,6 +61,40 @@ def test_alphas_plain_equals_pallas_alpha_kernel(geom, seed):
     np.testing.assert_array_equal(a.reshape(B, n_mb).numpy(), np.asarray(a_r))
     np.testing.assert_array_equal(uv.reshape(B, n_mb).numpy(),
                                   np.asarray(uv_r))
+
+
+@pytest.fixture(scope="module")
+def alpha_edge_reference():
+    """The reference's jnp alphas (phase1p._alphas_planar2, which its own
+    tests hold equal to the Pallas alpha kernel) of every edge input, in
+    one call over their lanes side by side (alphas are per lane)."""
+    src = np.concatenate([alpha_edge_inputs(L, L) for L in ALPHA_EDGE_L],
+                         axis=1)
+    n = src.shape[1]
+    blocks = [jnp.asarray(src[lo:hi].reshape(-1, 4, 4, n))
+              for lo, hi in ((0, 256), (256, 320), (320, 384))]
+    a_r, uv_r = P1_ref._alphas_planar2(*blocks, 1, n)
+    ends = np.cumsum((0,) + ALPHA_EDGE_L)
+    return {L: (np.asarray(a_r).reshape(n)[lo:hi],
+                np.asarray(uv_r).reshape(n)[lo:hi])
+            for L, lo, hi in zip(ALPHA_EDGE_L, ends[:-1], ends[1:])}
+
+
+@pytest.mark.parametrize("L", ALPHA_EDGE_L)
+def test_alphas_plain_on_edge_inputs_equals_reference(L, alpha_edge_reference):
+    """Kernel 1's plain version against the reference's jnp alphas on a
+    flat MB, a checkerboard MB and random MBs, at the lane counts that the
+    card-only test gives the kernel."""
+    a, uv = K.alphas(torch.as_tensor(alpha_edge_inputs(L, L)))
+    a_r, uv_r = alpha_edge_reference[L]
+    np.testing.assert_array_equal(a.numpy(), a_r)
+    np.testing.assert_array_equal(uv.numpy(), uv_r)
+    # Premises: the flat MB's 256 luma and 128 chroma coefficients all in
+    # bin 0 (alphas 510 // 256 and 510 // 128); the checkerboard's last bin
+    # is 31 (510 * 31 // 96, its 96 zero chroma coefficients).
+    assert (int(a[0]), int(uv[0])) == (253, 3)
+    if L > 1:
+        assert int(uv[1]) == 510 * 31 // 96
 
 
 @pytest.mark.parametrize("quality,sns", [(75, 50), (30, 100)])

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from test_torch_cuda import broadcast_qtab
 from test_torch_cuda import p2_args as _args
 from test_torch_cuda import p2_inputs as _inputs
 from webp_tpu.ops import fastpath as FP_ref
@@ -60,6 +61,40 @@ def test_phase2_pack_equals_reference_planar_and_pack(geom):
     _assert_wire_equal(got, ref)
     assert (got["esc_cnt"] > 0).all(), "premise: escapes occur"
     assert d["is_i4"].any() and not d["is_i4"].all()
+
+
+@pytest.mark.parametrize("config", ["unsegmented", "i4_off", "both"])
+def test_phase2_pack_without_segments_or_i4_equals_reference(config):
+    """A zero segment map with one set of quant rows and/or a zero I4
+    split, as the unsegmented and I4-off configurations pass them: every
+    wire field exact against the reference's phase2_planar with seg=None
+    and/or i4=None, then its pack (64x16 at B = 2; 4 MBs in one row)."""
+    from webp_tpu.ops import pipeline as PP_ref
+
+    d = _inputs(2, 64, 16, 31)
+    qp = PP_ref.quant_params(75)
+    segmented, with_i4 = config == "i4_off", config == "unsegmented"
+    if not segmented:
+        d["qtab"] = broadcast_qtab(2, qp)
+    args = list(_args(d))
+    if not with_i4:
+        args[5], args[6] = torch.zeros_like(args[5]), torch.zeros_like(args[6])
+    if not segmented:
+        args[7] = torch.zeros_like(args[7])
+    got = P2K.phase2_pack(*args, 1024.0, 1024)
+    j = jnp.asarray
+    lv24, y2, _, _ = PL_ref.phase2_planar(
+        j(d["Y"]), j(d["U"]), j(d["V"]), j(d["modes"]), j(d["uvmodes"]), qp,
+        4, 1, rd_drop=1024.0,
+        seg=((j(d["seg_map"]), {k: j(v) for k, v in d["seg_rows"].items()})
+             if segmented else None),
+        i4=(j(d["is_i4"]), j(d["i4_modes"])) if with_i4 else None)
+    packed, esc_idx, esc_val, esc_cnt = jax.vmap(
+        lambda x: FP_ref._pack_levels(x, 1024))(lv24)
+    skip = (lv24 == 0).all(axis=(-2, -1)) & (y2 == 0).all(axis=-1)
+    _assert_wire_equal(got, {"packed": packed, "esc_idx": esc_idx,
+                             "esc_val": esc_val, "esc_cnt": esc_cnt,
+                             "y2": y2, "skip": skip})
 
 
 def test_phase2_pack_escape_overflow_keeps_the_sentinel_semantics():

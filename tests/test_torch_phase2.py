@@ -62,11 +62,49 @@ def test_phase2_planar_levels_equal_reference(geom):
     assert (got[0].abs() > 7).any(), "premise: escape-sized levels occur"
 
 
+@pytest.mark.parametrize("config", ["unsegmented", "i4_off", "both"])
+def test_phase2_planar_without_segments_or_i4_equals_reference(config):
+    """lv24, y2 and the contours exact with seg=None (the quality's one
+    set of quant rows, qp) and/or i4=None (every MB I16), at 32x32 (2x2
+    MBs, 3 anti-diagonals)."""
+    from webp_tpu.ops import pipeline as PP_ref
+    from webp_tpu_torch.ops import pipeline as PP
+
+    W = H = 32
+    mb_w, mb_h = W // 16, H // 16
+    n_mb = mb_w * mb_h
+    Y, U, V = _planes(1, W, H, 7)
+    rng = np.random.default_rng(8)
+    modes = rng.integers(0, 4, (1, n_mb)).astype(np.uint8)
+    uvmodes = rng.integers(0, 4, (1, n_mb)).astype(np.uint8)
+    is_i4 = np.array([[True, False, True, True]])
+    i4m = rng.integers(0, 10, (1, n_mb, 16)).astype(np.uint8)
+    seg_map = rng.integers(0, 4, (1, n_mb)).astype(np.int32)
+    tabs = FP_ref.all_q_tables()[0]
+    seg_rows = {k: tabs[k][rng.integers(10, 120, (1, 4))].astype(np.int32)
+                for k in ("y1", "y2", "uv")}
+    segmented, with_i4 = config == "i4_off", config == "unsegmented"
+
+    def run(PL_, qp, a):
+        return PL_.phase2_planar(
+            *(a(p) for p in (Y, U, V)), a(modes), a(uvmodes), qp, mb_w,
+            mb_h, rd_drop=1024.0,
+            seg=((a(seg_map), {k: a(v) for k, v in seg_rows.items()})
+                 if segmented else None),
+            i4=(a(is_i4), a(i4m)) if with_i4 else None)
+
+    ref = run(PL_ref, PP_ref.quant_params(75), jnp.asarray)
+    got = run(PL, PP.quant_params(75), torch.as_tensor)
+    for name, g, r in zip(("lv24", "y2", "bottom", "right"), got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                      err_msg=name)
+
+
 def test_phase2_planar_other_configurations_raise():
     z = torch.zeros((1, 16, 16), dtype=torch.uint8)
     m = torch.zeros((1, 1), dtype=torch.uint8)
     for kw in ({"sk": 2}, {"trellis": True}, {"i4_search": ()},
-               {"wire_pack": 1}, {}):
+               {"wire_pack": 1}):
         with pytest.raises(NotImplementedError):
             PL.phase2_planar(z, z[:, :8, :8], z[:, :8, :8], m, m, None, 1,
                              1, **kw)
@@ -149,5 +187,3 @@ def test_fast_encode_fn_other_configurations_raise():
                {"i4_mode_search": True}):
         with pytest.raises(NotImplementedError):
             FP.fast_encode_fn(4, 3, 75, 4, 50, **kw)
-    with pytest.raises(NotImplementedError):
-        FP.fast_encode_fn(4, 3, 75, 1, 50)

@@ -142,7 +142,14 @@ def test_tlsd_from_seg_equals_reference():
 
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, files in os.walk(PKG):
+    for top in (PKG, os.path.join(ROOT, "tools")):
+        out += _py_files(top)
+    return out
+
+
+def _py_files(top):
+    out = []
+    for d, _, files in os.walk(top):
         if "_build" in d or "__pycache__" in d:
             continue
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]

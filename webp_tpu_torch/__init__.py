@@ -1,22 +1,38 @@
-"""webp_tpu_torch — the WebP codec's batched lossy device encode in PyTorch,
-with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""webp_tpu_torch — the WebP codec's lossy device encode in PyTorch, with
+hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
 A port of the JAX package webp_tpu, which stays the reference: on the
 same inputs this package writes byte-identical WebP files.
 
+    encode(img, device=None, **options) -> bytes
+        (webp_tpu.encode(img, backend="device", **options))
     encode_batch(images, quality=75, device=None) -> list[bytes]
 
 device=None runs on the card ("cuda"); device="cpu" runs every kernel's
-plain PyTorch version instead.
+plain PyTorch version instead. LAST_STATS holds the last encode()'s
+EncStats.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .container.riff import WebPError
+from .encoder import (PRESETS, EncoderOptions, EncStats, encode,
+                      options_for_preset)
+
 __version__ = "0.1.0"
 
-__all__ = ["encode_batch"]
+__all__ = ["encode", "encode_batch", "EncoderOptions", "EncStats",
+           "PRESETS", "options_for_preset", "WebPError"]
+
+
+def __getattr__(name):
+    if name == "LAST_STATS":
+        from . import encoder
+
+        return encoder.LAST_STATS
+    raise AttributeError(name)
 
 
 def encode_batch(images, quality: int = 75, device=None, **options) -> list:

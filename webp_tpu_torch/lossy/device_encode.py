@@ -28,27 +28,14 @@ def _resolve_device(device) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
-def _finish_one(out_i: dict, mb_w: int, mb_h: int, width: int, height: int,
-                cfg: LossyConfig) -> bytes:
-    """Host tail for one image: unpack levels, entropy-code, frame-assemble."""
-    from ..ops.fastpath import unpack_levels
-
-    n_mb = mb_w * mb_h
-    lv24 = unpack_levels(out_i["packed"], out_i["esc_idx"], out_i["esc_val"],
-                         out_i["esc_cnt"], n_mb)
-    dummyY = np.zeros((mb_h * 16, mb_w * 16), np.uint8)
-    dummyU = np.zeros((mb_h * 8, mb_w * 8), np.uint8)
-    enc = DeviceVP8Encoder(dummyY, dummyU, dummyU, width, height, cfg)
-    enc.proba = T.COEFFS_PROBA0.copy()
-    enc.levels = lv24.astype(np.int32).reshape(mb_h, mb_w, 24, 16)
-    enc.y2_levels = out_i["y2"].astype(np.int32).reshape(mb_h, mb_w, 16)
-    enc.imodes = out_i["imodes"].reshape(mb_h, mb_w, 16).copy()
-    enc.uvmode = out_i["uvmodes"].reshape(mb_h, mb_w)
-    enc.skip = out_i["skip"].reshape(mb_h, mb_w).copy()
-    enc.is_i4 = out_i["is_i4"].reshape(mb_h, mb_w).copy()
-    enc.apply_device_plan(out_i["seg_map"], out_i["seg_q"],
-                          out_i["seg_beta"], dq_uv=out_i.get("dq_uv"))
-    return enc._finish_bitstream()
+def planeless(width: int, height: int, cfg: LossyConfig):
+    """A DeviceVP8Encoder with zero host planes: the device computes every
+    field and the host plan is trivial (one segment, no SNS), so the host
+    planes are read only by the overflow fallback, which imports its own."""
+    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
+    y = np.zeros((mb_h * 16, mb_w * 16), np.uint8)
+    uv = np.zeros((mb_h * 8, mb_w * 8), np.uint8)
+    return DeviceVP8Encoder(y, uv, uv, width, height, cfg)
 
 
 class DeviceVP8Encoder(VP8Encoder):
@@ -59,12 +46,63 @@ class DeviceVP8Encoder(VP8Encoder):
     the launch.
     """
 
+    rgb_input = None  # uint8 [H, W, 3], padded to whole MBs, for encode()
+    dithering = 0.0   # the fallback's host import (rgb_to_yuv420)
+
     def __init__(self, y, u, v, width, height, cfg):
         import dataclasses
 
         self.dev_segments = max(1, min(4, cfg.segments))
+        self.dev_sns = max(0, cfg.sns_strength)
         cfg = dataclasses.replace(cfg, segments=1, sns_strength=0)
         super().__init__(y, u, v, width, height, cfg)
+
+    def encode(self, device=None) -> bytes:
+        """One image (rgb_input) through the device program at B=1, its
+        YUV import on the device, and the host tail. An escape list that
+        overflows the device's capacity re-encodes the image with the exact
+        host encoder, from host planes imported then (with self.dithering).
+        device: None for the card, "cpu" for the plain versions. Methods
+        0-2 (or i4_blocks off) run without the I4 search."""
+        from ..ops.fastpath import fast_encode_fn, unpack_output_blob
+
+        use_i4 = bool(self.cfg.i4_blocks) and self.cfg.method >= 3
+        sk = 2 if self.cfg.method >= 5 and use_i4 else 1
+        fn = fast_encode_fn(self.mb_w, self.mb_h, self.cfg.quality,
+                            self.dev_segments, self.dev_sns, use_i4,
+                            sharp_yuv=bool(self.cfg.sharp_yuv), sk=sk,
+                            trellis=self.cfg.method >= 5 and use_i4,
+                            i4_mode_search=self.cfg.method >= 6 and use_i4)
+        out = fn.rgb_blob(torch.from_numpy(np.ascontiguousarray(
+            self.rgb_input[None])).to(_resolve_device(device)))
+        host = unpack_output_blob([c.cpu().numpy() for c in out],
+                                  fn.blob_spec)
+        if int(host["esc_cnt"][0]) > fn.esc_cap:
+            FALLBACKS["images"] += 1
+            Y, U, V = rgb_to_yuv420(
+                self.rgb_input[:self.height, :self.width], self.dithering)
+            return VP8Encoder(Y, U, V, self.width, self.height,
+                              self.cfg).encode()
+        return self.finish({k: v[0] for k, v in host.items()})
+
+    def finish(self, out_i: dict) -> bytes:
+        """Host tail for one image's device fields: unpack the levels,
+        install the device's segment plan, entropy-code, assemble."""
+        from ..ops.fastpath import unpack_levels
+
+        mb_w, mb_h = self.mb_w, self.mb_h
+        lv24 = unpack_levels(out_i["packed"], out_i["esc_idx"],
+                             out_i["esc_val"], out_i["esc_cnt"], mb_w * mb_h)
+        self.proba = T.COEFFS_PROBA0.copy()
+        self.levels = lv24.astype(np.int32).reshape(mb_h, mb_w, 24, 16)
+        self.y2_levels = out_i["y2"].astype(np.int32).reshape(mb_h, mb_w, 16)
+        self.imodes = out_i["imodes"].reshape(mb_h, mb_w, 16).copy()
+        self.uvmode = out_i["uvmodes"].reshape(mb_h, mb_w)
+        self.skip = out_i["skip"].reshape(mb_h, mb_w).copy()
+        self.is_i4 = out_i["is_i4"].reshape(mb_h, mb_w).copy()
+        self.apply_device_plan(out_i["seg_map"], out_i["seg_q"],
+                               out_i["seg_beta"], dq_uv=out_i.get("dq_uv"))
+        return self._finish_bitstream()
 
     def apply_device_plan(self, seg_map, seg_q, seg_beta,
                           dq_uv=None) -> None:
@@ -167,8 +205,8 @@ def _emit(host, rgbs, fn, width, height, cfg, ex):
         if overflow[i]:
             Y, U, V = rgb_to_yuv420(rgbs[i])
             return VP8Encoder(Y, U, V, width, height, cfg).encode()
-        return _finish_one({k: v[i] for k, v in host.items()},
-                           fn.mb_w, fn.mb_h, width, height, cfg)
+        return planeless(width, height, cfg).finish(
+            {k: v[i] for k, v in host.items()})
 
     return list(ex.map(emit, range(len(rgbs))))
 

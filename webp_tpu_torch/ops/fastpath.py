@@ -10,11 +10,12 @@ webp_tpu/ops/fastpath.py, the batched planar main path).
   Phase 2 — the closed-loop skew-1 wavefront with modes fixed, fused with
     nibble packing (kernel 4, ops/p2_kernel.py), then the escape list.
 
-Configuration ported: segments > 1, SNS, I4 on, skew 1, rd_drop, no
-trellis, no in-loop search, no sharp-YUV. Other configurations raise
-NotImplementedError. The quantizer, lambda and rate tables are derived
-here from the port's own lossy/ copies and moved to the device by
-tables_from_numpy().
+Configurations ported: segmented (segments > 1 and >= 4 macroblocks) or
+unsegmented (one quantizer, static lambdas, no phase 0), I4 on or off,
+SNS, skew 1, rd_drop; no trellis, no in-loop search, no sharp-YUV (those
+raise NotImplementedError: ROADMAP item 11). The quantizer, lambda and
+rate tables are derived here from the port's own lossy/ copies and moved
+to the device by tables_from_numpy().
 """
 
 from __future__ import annotations
@@ -541,48 +542,80 @@ class FastEncoder:
         self.quality = int(quality)
         self.segments = int(segments)
         self.sns = max(0, int(sns_strength))
+        self.i4_blocks = bool(i4_blocks)
         self.rd_drop = float(rd_drop)
         self.n_mb = mb_w * mb_h
+        self.use_segments = self.segments > 1 and self.n_mb >= 4
         self.esc_cap = max(1024, ESC_BLOCKS_PER_MB * self.n_mb)
         self.blob_spec = blob_spec_of(self.n_mb, self.esc_cap)
-        if not (self.segments > 1 and self.n_mb >= 4 and i4_blocks):
-            raise NotImplementedError(
-                "fast_encode_fn: only the segmented I4 configuration "
-                "(segments > 1, >= 4 macroblocks, i4_blocks) is ported")
+
+    def _segment_plan(self, src_rows, B, tabs):
+        """Phase 0 of the segmented configuration: alphas (kernel 1), the
+        k-means plans and the per-image quant rows and lambdas. Returns
+        (seg_map [B, n_mb], seg_q, seg_beta, qtabs [B, 48, 16], lambdas
+        {i16, uv, i4, mode: [B, 4]}, tlsd4 [B, 4] or None, dq_uv [B, 2])."""
+        from . import phase1p as P1
+
+        sns = self.sns
+        alphas = P1.alphas_planar(src_rows, B, self.n_mb)
+        seg_map, seg_q, seg_beta, guv = P1.plan_segments_planar(
+            alphas, B, self.n_mb, self.quality, sns, self.segments)
+        dq_dc, dq_ac = _uv_deltas(guv, sns)                    # [B]
+        qi = seg_q.long()
+        seg_rows = {k: tabs.q[k][qi] for k in ("y1", "y2")}    # [B,4,4,16]
+        seg_rows["uv"] = _uv_rows_delta(seg_q, dq_dc, dq_ac, tabs)
+        lams = {"i16": tabs.lam_i16[qi], "uv": _lam_uv_of(seg_rows["uv"]),
+                "i4": tabs.lam_i4[qi], "mode": tabs.lam_mode[qi]}
+        tlsd4 = (((sns * tabs.qi4[qi]) >> 5).to(torch.float32)
+                 if sns > 0 else None)
+        dq_uv_b = torch.stack([torch.full_like(dq_ac, dq_dc), dq_ac], dim=1)
+        qtabs = torch.stack([seg_rows[k] for k in ("y1", "y2", "uv")],
+                            dim=1).reshape(B, 48, 16).contiguous()
+        return seg_map, seg_q, seg_beta, qtabs, lams, tlsd4, dq_uv_b
+
+    def _single_plan(self, B, dev):
+        """The unsegmented configuration (reference fastpath.py:1313-1347):
+        segment fields zero, the quality's one set of quant rows broadcast
+        to every segment and image, the lambdas and TLambdaSD static."""
+        qp, lambdas = rd_params(self.quality)
+        z4 = torch.zeros((B, 4), dtype=torch.int32, device=dev)
+        one = torch.stack([torch.stack(qp[k]) for k in ("y1", "y2", "uv")])
+        qtabs = one[:, None].expand(3, 4, 4, 16).reshape(48, 16).to(dev) \
+            .expand(B, 48, 16).contiguous()
+        lams = {k: torch.full((B, 4), float(lambdas[k]), device=dev)
+                for k in ("i16", "uv", "i4", "mode")}
+        tlsd4, _ = _tlsd_static(self.sns, lambdas["q_i4"], self.n_mb)
+        if tlsd4 is not None:
+            tlsd4 = tlsd4.to(dev).expand(B, 4).contiguous()
+        return (torch.zeros((B, self.n_mb), dtype=torch.int32, device=dev),
+                z4, z4, qtabs, lams, tlsd4,
+                torch.zeros((B, 2), dtype=torch.int32, device=dev))
 
     def part1_batched(self, Yb, Ub, Vb):
-        """Phase 0 (alphas, segment plan), phase 1 (I16/UV search) and the
-        I4 search over the fused batch x MB lane axis."""
+        """Phase 0 (alphas, segment plan; segmented configuration only),
+        phase 1 (I16/UV search) and the I4 search (when on) over the fused
+        batch x MB lane axis."""
         from . import i4 as I4
         from . import phase1p as P1
 
         tabs = device_tables(str(Yb.device))
         B = Yb.shape[0]
         mb_w, mb_h, n_mb = self.mb_w, self.mb_h, self.n_mb
-        sns = self.sns
         src_rows, srcs = P1.build_src(Yb, Ub, Vb, mb_w, mb_h)
-        alphas = P1.alphas_planar(src_rows, B, n_mb)
-        seg_map, seg_q, seg_beta, guv = P1.plan_segments_planar(
-            alphas, B, n_mb, self.quality, sns, self.segments)
-        dq_dc, dq_ac = _uv_deltas(guv, sns)                    # [B]
-        qi = seg_q.long()
-        seg_rows = {k: tabs.q[k][qi] for k in ("y1", "y2")}    # [B,4,4,16]
-        seg_rows["uv"] = _uv_rows_delta(seg_q, dq_dc, dq_ac, tabs)
-        lam16_4b = tabs.lam_i16[qi]
-        lamuv_4b = _lam_uv_of(seg_rows["uv"])
-        lam4_4b = tabs.lam_i4[qi]
-        lammd_4b = tabs.lam_mode[qi]
-        tlsd4 = (((sns * tabs.qi4[qi]) >> 5).to(torch.float32)
-                 if sns > 0 else None)
-        dq_uv_b = torch.stack([torch.full_like(dq_ac, dq_dc), dq_ac], dim=1)
-        qtabs = torch.stack([seg_rows[k] for k in ("y1", "y2", "uv")],
-                            dim=1).reshape(B, 48, 16).contiguous()
+        seg_map, seg_q, seg_beta, qtabs, lams, tlsd4, dq_uv_b = (
+            self._segment_plan(src_rows, B, tabs) if self.use_segments
+            else self._single_plan(B, Yb.device))
         modes, uvmodes, i16_score = P1.phase1_planar(
-            src_rows, srcs, qtabs, lam16_4b, lamuv_4b, tlsd4, seg_map, mb_w,
-            mb_h, lam_mode4=lammd_4b)
-        is_i4, i4_modes, _ = I4.i4_search(
-            Yb, seg_map, seg_rows["y1"].reshape(B, 16, 16), lam4_4b,
-            lammd_4b, tlsd4, i16_score, mb_w, mb_h)
+            src_rows, srcs, qtabs, lams["i16"], lams["uv"], tlsd4, seg_map,
+            mb_w, mb_h, lam_mode4=lams["mode"])
+        if self.i4_blocks:
+            is_i4, i4_modes, _ = I4.i4_search(
+                Yb, seg_map, qtabs[:, :16].contiguous(), lams["i4"],
+                lams["mode"], tlsd4, i16_score, mb_w, mb_h)
+        else:
+            is_i4 = torch.zeros((B, n_mb), dtype=torch.bool, device=Yb.device)
+            i4_modes = torch.zeros((B, n_mb, 16), dtype=torch.uint8,
+                                   device=Yb.device)
         return (modes, uvmodes, is_i4, i4_modes, seg_map, seg_q, seg_beta,
                 qtabs, dq_uv_b)
 
@@ -643,11 +676,11 @@ def fast_encode_fn(mb_w: int, mb_h: int, quality: int, segments: int = 1,
     """The batched encoder for one geometry (cached). rd_drop enables the
     trellis-lite RD dropout inside the closed loop (ops/planar.py
     quantize_p); sharp_yuv, sk=2, trellis and i4_mode_search are not
-    ported yet."""
+    ported yet (ROADMAP item 11)."""
     if sharp_yuv or sk != 1 or trellis or i4_mode_search:
         raise NotImplementedError(
             "fast_encode_fn: sharp-YUV, skew 2, trellis and the in-loop "
-            "search are not ported")
+            "search are not ported (ROADMAP item 11)")
     return _fast_encode_fn(int(mb_w), int(mb_h), int(quality), int(segments),
                            int(sns_strength), bool(i4_blocks), float(rd_drop))
 

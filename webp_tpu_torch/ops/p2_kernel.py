@@ -44,13 +44,16 @@ def _wire(packed, esc_idx, esc_val, esc_cnt, y2, skip):
 def phase2_pack_plain(Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map,
                       qtab, rd_drop, esc_cap):
     """Plain version of csrc/p2_wavefront.cu: the step loop
-    planar.phase2_planar, then the per-MB pack formulas."""
+    planar.phase2_planar, then the per-MB pack formulas. A batch with no
+    I4 MB (is_i4 all zero: the I4-off configuration) skips the I4
+    reconstruction, whose levels no MB would take."""
     B, H, W = Y.shape
     seg_rows = dict(zip(("y1", "y2", "uv"),
                         qtab.reshape(B, 3, 4, 4, 16).unbind(1)))
     lv24, y2, _, _ = phase2_planar(
         Y, U, V, modes, uvmodes, None, W // 16, H // 16, rd_drop=rd_drop,
-        seg=(seg_map, seg_rows), i4=(is_i4, i4_modes))
+        seg=(seg_map, seg_rows),
+        i4=(is_i4, i4_modes) if bool(is_i4.any()) else None)
     skip = (lv24 == 0).all(dim=-1).all(dim=-1) & (y2 == 0).all(dim=-1)
     return _wire(*_pack_levels(lv24, esc_cap), y2, skip)
 
@@ -60,7 +63,10 @@ def phase2_pack(Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map, qtab,
     """Phase 2 and the pack over a batch: the CUDA kernel (one launch for
     the whole wavefront, then its escape-list kernel) for CUDA tensors, the
     plain version for CPU tensors. Returns the wire dict (module
-    docstring)."""
+    docstring). The unsegmented and I4-off configurations pass a zero
+    seg_map (with each segment's rows of qtab the quality's one set) and a
+    zero is_i4, as the reference's Pallas kernel gets them
+    (pallas_p2.py:573-592)."""
     cuda.check("Y", Y, torch.uint8, (None, None, None))
     B, H, W = Y.shape
     if B == 0 or H % 16 or W % 16 or H == 0 or W == 0:

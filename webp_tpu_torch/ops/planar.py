@@ -489,22 +489,21 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
     """Batched closed-loop reconstruction wavefront (skew 1).
 
     Y/U/V: [B, H, W] uint8; modes/uvmodes: [B, n_mb];
-    seg: (seg_map [B, n_mb], seg_rows {y1/y2/uv: [B, 4, 4, 16]});
-    i4: (is_i4 [B, n_mb] bool, i4_modes [B, n_mb, 16] u8).
+    qp: quant_params() dict ({y1/y2/uv: 4 x [16]}) when seg is None;
+    seg: (seg_map [B, n_mb], seg_rows {y1/y2/uv: [B, 4, 4, 16]}) or None;
+    i4: (is_i4 [B, n_mb] bool, i4_modes [B, n_mb, 16] u8) or None (every
+    MB I16).
     Returns (lv24 [B, n_mb, 24, 16] i16, y2 [B, n_mb, 16] i16,
     bottom [B, n_mb, 16], right [B, n_mb, 16]).
 
-    Only the main path's configuration is ported (sk=1, no trellis, no
-    in-loop search, no wire packing, segments and I4 on); `qp` is unused
-    there. The other configurations raise NotImplementedError.
+    Ported: sk=1 without trellis, in-loop search or wire packing (ROADMAP
+    item 11), with or without segments and I4. The other configurations
+    raise NotImplementedError.
     """
     if sk != 1 or trellis or i4_search is not None or wire_pack is not None:
         raise NotImplementedError(
             "phase2_planar: only sk=1 without trellis, in-loop search or "
-            "wire packing is ported")
-    if seg is None or i4 is None:
-        raise NotImplementedError(
-            "phase2_planar: only the segmented I4 configuration is ported")
+            "wire packing is ported (ROADMAP item 11)")
     dev = Y.device
     B = Y.shape[0]
     N = B * mb_h
@@ -519,12 +518,18 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
     xs_v = skew(_mb_planar(V.to(torch.uint8), mb_h, mb_w, 8))
     xs_m = skew(modes.reshape(B, mb_h, mb_w))
     xs_uvm = skew(uvmodes.reshape(B, mb_h, mb_w))
-    seg_map, seg_rows = seg
-    xs_seg = skew(seg_map.reshape(B, mb_h, mb_w).to(torch.int32))
-    rows4 = {k: _seg_rows_planar(seg_rows[k].to(torch.int32), B, mb_h)
-             for k in ("y1", "y2", "uv")}
-    xs_i4 = skew(i4[0].reshape(B, mb_h, mb_w))
-    xs_i4m = skew(i4[1].reshape(B, mb_h, mb_w, 16))
+    if seg is not None:
+        seg_map, seg_rows = seg
+        xs_seg = skew(seg_map.reshape(B, mb_h, mb_w).to(torch.int32))
+        rows4 = {k: _seg_rows_planar(seg_rows[k].to(torch.int32), B, mb_h)
+                 for k in ("y1", "y2", "uv")}
+    else:
+        qp_p = {k: tuple(torch.as_tensor(a, dtype=torch.int32, device=dev)
+                         .reshape(16, 1) for a in qp[k])
+                for k in ("y1", "y2", "uv")}
+    if i4 is not None:
+        xs_i4 = skew(i4[0].reshape(B, mb_h, mb_w))
+        xs_i4m = skew(i4[1].reshape(B, mb_h, mb_w, 16))
 
     def sel_mode(preds, mode):
         """preds [4, s, s, N]; mode [N] -> [s, s, N]."""
@@ -549,9 +554,12 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
         valid = (xcol >= 0) & (xcol < mb_w)
         has_left = valid & (xcol > 0)
         has_top = valid & (yy > 0)
-        st = xs_seg[t]
-        qp_t = {k: tuple(_seg_select_p(rows4[k][:, i], st) for i in range(4))
-                for k in ("y1", "y2", "uv")}
+        if seg is not None:
+            st = xs_seg[t]
+            qp_t = {k: tuple(_seg_select_p(rows4[k][:, i], st)
+                             for i in range(4)) for k in ("y1", "y2", "uv")}
+        else:
+            qp_t = qp_p
 
         topY = _shift1_p(By1)
         leftY, tlY = Ry, _shift1_p(Cy2)
@@ -560,17 +568,19 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
         src_y = xs_y[t].to(torch.int32).reshape(16, 4, 4, N)
         lv, y2lv, reconY = luma_pipe_p(src_y, predY_b, qp_t, rd_drop=rd_drop)
         rYp = blocks_to_plane_p(reconY, 16)
-        # Above-right placeholder: at skew 1 the rightmost subblock column
-        # never selects a strip-reading mode (TR_MODES are banned there).
-        trs = topY[15:16].expand(4, N)
-        lv_i4, work = i4_reconstruct_p(
-            src_y, xs_i4m[t], topY, leftY, tlY, trs, has_top, has_left,
-            qp_t["y1"], rd_drop=rd_drop)
-        ii_mb = xs_i4[t]
-        sel = ii_mb[None, None, :]
-        lv = torch.where(sel, lv_i4, lv)
-        y2lv = torch.where(ii_mb[None, :], 0, y2lv)
-        rYp = torch.where(sel, work, rYp)
+        if i4 is not None:
+            # Above-right placeholder: at skew 1 the rightmost subblock
+            # column never selects a strip-reading mode (TR_MODES are
+            # banned there).
+            trs = topY[15:16].expand(4, N)
+            lv_i4, work = i4_reconstruct_p(
+                src_y, xs_i4m[t], topY, leftY, tlY, trs, has_top, has_left,
+                qp_t["y1"], rd_drop=rd_drop)
+            ii_mb = xs_i4[t]
+            sel = ii_mb[None, None, :]
+            lv = torch.where(sel, lv_i4, lv)
+            y2lv = torch.where(ii_mb[None, :], 0, y2lv)
+            rYp = torch.where(sel, work, rYp)
 
         topU = _shift1_p(Bu1)
         leftU, tlU = Ru, _shift1_p(Cu2)
