@@ -45,6 +45,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
      (no p1_alpha unsegmented, no i4_search with I4 off, p2_wavefront
      once); and kernels 2, 3 and 4 against their plain versions on the
      full-width inputs of encode() with I4 off and unsegmented.
+  9. The quality modes. One 1536x1024 encode() at method 5 (the skew-2
+     closed loop with the trellis) and one at method 6 (plus the in-loop
+     I4/UV search), each counted: kernels 1-3 once, kernel 4 never (phase
+     2 is the planar step loop, its steps replayed from a CUDA graph); wall
+     and device-program seconds, phase 2's steps and ms per step (and, at
+     method 6, the step loop without the graph), kernels 1-3 against their
+     plain versions on the path's inputs (kernel 3 with the skew-1 ban
+     lifted). Sharp YUV at the main path's configuration (encode_batch,
+     B=16, sharp_yuv=True, counted): the sharp import's time beside the
+     plain import's, the batch's time, and one full-size image's card
+     planes against the CPU's (within one level, on at most one sample in
+     10^4: the card's powf is not the C library's). Card files against CPU
+     files on 64x48 and 72x40 at methods 5 and 6 (equal) and with sharp
+     YUV (equal where the planes are).
 
 Kernel times ("ms") are the card's own (runs queued behind a sleep, CUDA
 events); each kernel's time per call from an idle card, which also
@@ -53,8 +67,9 @@ recorded before the queued timing), is printed and recorded beside it.
 
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's route, source, the TPU kernel it replaces, launches on the main
-path and in the stream (stream_launches), error, times and bound; the
-last line is {"ok": true, "device": {...}}.
+path and in the stream (stream_launches) and, for kernel 3, at methods
+5 and 6 (quality_launches, with its card and plain times there), error,
+times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -265,7 +280,7 @@ def _outputs(x):
 
 
 def hold(name, kernel, plain, args, replaces, launches, n_bytes, n_ops,
-         plain_reps=3):
+         plain_reps=3, where="the main path"):
     """Runs a kernel wrapper and its plain version on the same card
     tensors: integer outputs (modes, alphas, levels) must be equal, float
     outputs (scores) within SCORE_RTOL. Times both and returns the
@@ -281,7 +296,7 @@ def hold(name, kernel, plain, args, replaces, launches, n_bytes, n_ops,
     call_ms = time_ms(lambda: kernel(*args), 20, queued=False)
     plain_ms = time_ms(lambda: plain(*args), plain_reps, queued=False)
     bd, by = bound_ms(n_bytes, n_ops)
-    print(f"kernel {name}: {launches[name]} launch(es) on the main path; "
+    print(f"kernel {name}: {launches[name]} launch(es) on {where}; "
           f"{'exact' if not mismatches else 'DISAGREES'} (max abs err "
           f"{err}); {ms:.4f} ms on the card (runs queued), {call_ms:.4f} ms "
           f"per call from an idle card (host launch included), plain "
@@ -390,6 +405,154 @@ def single_image(seed, card, hold):
               f"zero: {zero['seg_map']}); ms on the card (B=1): " + ", ".join(
                   f"{k} {v:.4f}" for k, v in times.items()) + f"; {card}",
               flush=True)
+
+
+def quality_modes(seed, card, hold, imgs):
+    """Phase 9: methods 5 and 6 at full width, sharp YUV at the main
+    path's configuration (imgs: its B images), and card files against CPU
+    files at the new settings. Returns kernel 3's record at method 5 and
+    the launches of each kernel at methods 5 and 6."""
+    import webp_tpu_torch
+    from webp_tpu_torch.lossy import device_encode as DE
+    from webp_tpu_torch.ops import cuda as KC
+    from webp_tpu_torch.ops import fastpath as FP
+    from webp_tpu_torch.ops import i4_kernel as I4K
+    from webp_tpu_torch.ops import p1_kernels as P1K
+    from webp_tpu_torch.ops import planar as PL
+    from webp_tpu_torch.ops import sharpyuv as SY
+    from webp_tpu_torch.ops import yuv as YUV
+
+    rng = np.random.default_rng(seed + 9)
+    img = synth_images(rng, 1, H, W)[0]
+    x = torch.as_tensor(img[None]).cuda()
+    steps = W // 16 + 2 * (H // 16 - 1)
+    want = {"p1_alpha": 1, "p1_mode": 1, "i4_search": 1, "p2_wavefront": 0}
+    quality, rec3 = {}, None
+    for method in (5, 6):
+        with Recorder(P1K, "alphas") as r_a, \
+                Recorder(P1K, "mode_search") as r_m, \
+                Recorder(I4K, "i4_scores") as r_i4:
+            KC.reset_launches()
+            data, first_s = once(lambda: webp_tpu_torch.encode(
+                img, method=method))
+            launches = dict(KC.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"method {method}: launches {launches}, "
+                                 f"expected {want}")
+        quality[f"method{method}"] = launches
+        check_webp(data, W, H)
+        e2e = wall_s(lambda: webp_tpu_torch.encode(img, method=method), 1)
+        fn = FP.fast_encode_fn(W // 16, H // 16, QUALITY, 4, 50, True, sk=2,
+                               trellis=True, i4_mode_search=method >= 6)
+        dev_s = wall_s(lambda: fn.rgb_blob(x), 1)
+        yuv = fn.to_yuv(x)
+        p1 = fn.part1_batched(*yuv)
+        _, p2_s = once(lambda: fn.phase2(*yuv, p1))
+        eager = ""
+        if method == 6:
+            # The same step loop without the graph, on the same inputs.
+            seen = []
+            orig = PL.phase2_planar
+
+            def rec(*a, **k):
+                seen.append((a, k))
+                return orig(*a, **k)
+            PL.phase2_planar = rec
+            try:
+                fn.phase2(*yuv, p1)
+            finally:
+                PL.phase2_planar = orig
+            a, k = seen[0]
+            _, p2_eager = once(lambda: orig(*a, **dict(k, graph=False)))
+            eager = (f"; without the graph {p2_eager:.3f} s, "
+                     f"{p2_eager / steps * 1e3:.3f} ms per step")
+        i_args = r_i4.calls[0]
+        if i_args[0][29].any():
+            raise AssertionError(f"method {method}: kernel 3's rows ban "
+                                 "modes (row 29 is not zero)")
+        n_sb = i_args[4]
+        rec = hold("i4_search", I4K.i4_scores, I4K.i4_scores_plain, i_args,
+                   "webp_tpu/ops/pallas_i4.py:72", launches,
+                   sum(a.numel() * a.element_size() for a in i_args
+                       if isinstance(a, torch.Tensor)) + 8 * n_sb,
+                   _ops_i4_per_sb(i_args[-1]) * n_sb,
+                   where=f"encode() at method {method}")
+        if rec["mismatches"]:
+            raise AssertionError(f"method {method}: kernel 3 disagrees "
+                                 "with its plain version")
+        rec3 = rec3 or rec
+        ms12 = {"p1_alpha": hold_exact("p1_alpha", P1K.alphas,
+                                       P1K.alphas_plain, r_a.calls[0]),
+                "p1_mode": hold_exact("p1_mode", P1K.mode_search,
+                                      P1K.mode_search_plain, r_m.calls[0])}
+        print(f"quality method {method}: encode() {W}x{H} first call "
+              f"{first_s:.3f} s, then {e2e:.3f} s wall; its device program "
+              f"(rgb_blob, B=1, input resident) {dev_s:.3f} s; phase 2 "
+              f"(planar step loop, CUDA graph) {p2_s:.3f} s for {steps} "
+              f"steps, {p2_s / steps * 1e3:.3f} ms per step{eager}; "
+              f"launches {launches}; kernel 3 (ban lifted, {n_sb} lanes) "
+              f"exact, {rec['ms']:.4f} ms on the card, plain "
+              f"{rec['plain_ms']:.3f} ms; kernels 1 and 2 exact, "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms12.items())
+              + f"; {len(data)} bytes; {card}", flush=True)
+
+    # Sharp YUV at the main path's configuration.
+    xb = torch.as_tensor(imgs).cuda()
+    imp = {k: (time_ms(f, 3), time_ms(f, 3, queued=False)) for k, f in (
+        ("sharp", lambda: SY.sharp_yuv420(xb)),
+        ("plain", lambda: YUV.rgb_to_yuv420(xb)))}
+    KC.reset_launches()
+    DE.FALLBACKS["images"] = 0
+    files, batch_s = once(lambda: webp_tpu_torch.encode_batch(
+        list(imgs), QUALITY, sharp_yuv=True))
+    check_per_batch(dict(KC.LAUNCHES), 1,
+                    f"encode_batch(sharp_yuv=True) B={len(imgs)}")
+    for f in files:
+        check_webp(f, W, H)
+    batch2_s = wall_s(lambda: webp_tpu_torch.encode_batch(
+        list(imgs), QUALITY, sharp_yuv=True), 1)
+    card_p = SY.sharp_yuv420(xb[:1])
+    cpu_p = SY.sharp_yuv420(torch.as_tensor(imgs[:1]))
+    diff = [(c.cpu().to(torch.int32) - p.to(torch.int32)).abs()
+            for c, p in zip(card_p, cpu_p)]
+    n_diff = sum(int((d != 0).sum()) for d in diff)
+    n_all = sum(d.numel() for d in diff)
+    worst = max(int(d.max()) for d in diff)
+    print(f"sharp YUV: import of B={len(imgs)} {W}x{H} on the card "
+          f"{imp['sharp'][0]:.3f} ms ({imp['sharp'][0] / len(imgs):.3f} ms "
+          f"per image; per call from an idle card {imp['sharp'][1]:.3f} ms), "
+          f"plain import {imp['plain'][0]:.3f} ms (per call "
+          f"{imp['plain'][1]:.3f} ms); encode_batch("
+          f"sharp_yuv=True) first call {batch_s:.3f} s, then {batch2_s:.3f} "
+          f"s; fallbacks {DE.FALLBACKS['images']}; one image's card planes "
+          f"against the CPU's: {n_diff} of {n_all} samples differ, largest "
+          f"difference {worst} (per plane Y/U/V: "
+          + "/".join(str(int((d != 0).sum())) for d in diff)
+          + f"); {card}", flush=True)
+    if worst > 1 or n_diff * 10_000 > n_all:
+        raise AssertionError("sharp YUV: card planes outside the tolerance")
+
+    # Card files against CPU files at the new settings.
+    for (w, h) in ((64, 48), (72, 40)):
+        small = synth_images(rng, 1, h, w)[0]
+        for opts in (dict(method=5), dict(method=6)):
+            if webp_tpu_torch.encode(small, **opts) != webp_tpu_torch.encode(
+                    small, device="cpu", **opts):
+                raise AssertionError(f"{w}x{h} {opts}: card and CPU files "
+                                     "differ")
+        xs = torch.as_tensor(small[None])
+        same = all(torch.equal(c.cpu(), p) for c, p in zip(
+            SY.sharp_yuv420(xs.cuda()), SY.sharp_yuv420(xs)))
+        f_card = webp_tpu_torch.encode(small, use_sharp_yuv=True)
+        f_cpu = webp_tpu_torch.encode(small, device="cpu", use_sharp_yuv=True)
+        if same and f_card != f_cpu:
+            raise AssertionError(f"{w}x{h} sharp: equal planes, files "
+                                 "differ")
+        print(f"quality {w}x{h}: card == CPU files at methods 5 and 6; "
+              f"sharp YUV planes {'equal' if same else 'differ'}, files "
+              f"{'equal' if f_card == f_cpu else 'differ'}", flush=True)
+    rec3.pop("mismatches")
+    return rec3, quality
 
 
 class Recorder:
@@ -641,6 +804,12 @@ def main(argv=None):
 
     # 8. The single-image entry, webp_tpu_torch.encode.
     single_image(args.seed, card, hold_exact)
+
+    # 9. The quality modes: methods 5 and 6, sharp YUV.
+    rec3, quality = quality_modes(args.seed, card, hold, imgs)
+    k3 = next(k for k in kernels if k["name"] == "i4_search")
+    k3["quality_launches"] = {m: v["i4_search"] for m, v in quality.items()}
+    k3["quality_ms"], k3["quality_plain_ms"] = rec3["ms"], rec3["plain_ms"]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 device="cpu", **options) (every kernel's plain version) writes the file
 webp_tpu.encode(img, backend="device", **options) writes, byte for byte,
 for the options this package ports, and raises NotImplementedError for
-those it does not port yet.
+those it does not port yet. Methods 5 and 6 and sharp YUV are held here
+by the device program's settings (as the reference's encode() asks for
+them) and byte for byte in test_torch_method5.py, test_torch_method6.py
+and test_torch_sharpyuv.py.
 
 Each reference configuration (geometry, quality, segments, SNS, I4)
 compiles its own JAX program on the CPU, ~5-25 s each, so the cases use
@@ -149,8 +152,7 @@ def test_single_configuration_runs_no_alpha_kernel_and_no_i4_search(
 
 
 @pytest.mark.parametrize("opts", [
-    dict(backend="host"), dict(backend="auto"), dict(method=5),
-    dict(method=6), dict(use_sharp_yuv=True), dict(autofilter=True),
+    dict(backend="host"), dict(backend="auto"), dict(autofilter=True),
     dict(target_size=2000), dict(target_psnr=40.0), dict(lossless=True),
     "alpha"], ids=str)
 def test_options_outside_the_slice_raise_not_implemented(opts):
@@ -162,6 +164,42 @@ def test_options_outside_the_slice_raise_not_implemented(opts):
         img[0, 0, 3] = 0
     with pytest.raises(NotImplementedError, match="ROADMAP|device path"):
         webp_tpu_torch.encode(img, device="cpu", **opts)
+
+
+@pytest.mark.parametrize("opts", [dict(method=5), dict(method=6),
+                                  dict(use_sharp_yuv=True)], ids=str)
+def test_quality_options_configure_the_reference_program(opts, monkeypatch):
+    """Methods 5 and 6 and sharp YUV ask the device program for the
+    settings the reference's encode() asks for (skew, trellis, in-loop
+    search, sharp import), read from both fast_encode_fn calls; the
+    reference's program is not compiled here (its files are held against
+    the port's in test_torch_method5.py, test_torch_method6.py and
+    test_torch_sharpyuv.py)."""
+    from webp_tpu.ops import fastpath as FP_ref
+    from webp_tpu_torch.ops import fastpath as FP
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def spy(key, orig):
+        def f(*a, **k):
+            seen[key] = (a, k)
+            if key == "ref":
+                raise Stop
+            return orig(*a, **k)
+        return f
+
+    monkeypatch.setattr(FP, "fast_encode_fn", spy("port", FP.fast_encode_fn))
+    monkeypatch.setattr(FP_ref, "fast_encode_fn",
+                        spy("ref", FP_ref.fast_encode_fn))
+    img = _images(1, 16, 32, 13)[0]
+    got = webp_tpu_torch.encode(img, device="cpu", **opts)
+    assert got[:4] == b"RIFF" and got[12:16] == b"VP8 "
+    with pytest.raises(Stop):
+        webp_tpu.encode(img, backend="device", **opts)
+    assert seen["port"] == seen["ref"]
 
 
 def test_bad_input_raises_webp_error():

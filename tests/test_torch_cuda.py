@@ -315,6 +315,116 @@ def test_mode_search_kernel_at_a_ragged_lane_count(use_td):
 
 
 @pytest.mark.cuda
+def test_i4_kernel_with_the_ban_lifted_at_a_ragged_lane_count():
+    """Kernel 3 on the rows of the skew-2 search (row 29 zero: no mode
+    banned in the rightmost subblock column) against its plain version, at
+    3 images of 5x3 MBs (720 subblock lanes, not a multiple of its block):
+    modes equal, scores within rtol 3e-7; some rightmost-column subblock
+    takes a strip-reading mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import cuda
+    from webp_tpu_torch.ops import fastpath as FP
+    from webp_tpu_torch.ops import i4 as I4
+    from webp_tpu_torch.ops import i4_kernel as I4K
+
+    rng = np.random.default_rng(9)
+    B, mb_w, mb_h = 3, 5, 3
+    n_sb = 16 * mb_w * mb_h
+    Y = np.stack([im[..., 1] for im in _images(B, 16 * mb_h, 16 * mb_w, 9)])
+    seg_map = rng.integers(0, 4, (B, mb_w * mb_h))
+    dev = torch.device("cuda")
+    data = I4._planar_inputs(torch.as_tensor(Y).to(dev),
+                             torch.as_tensor(seg_map).to(dev), mb_w, mb_h,
+                             allow_tr=True)
+    assert not data[29].any()
+    tabs, _, _, lam4, qi4 = FP.all_q_tables()
+    seg_q = rng.integers(10, 120, (B, 4))
+    qtab = torch.as_tensor(tabs["y1"][seg_q].reshape(B, 16, 16)
+                           .astype(np.int32)).to(dev)
+    lams = torch.as_tensor(np.concatenate(
+        [lam4[seg_q], ((50 * qi4[seg_q]) >> 5).astype(np.float32),
+         FP._lam_mode_table(qi4)[seg_q]], axis=1)).to(dev)
+    for use_td in (False, True):
+        args = (data, qtab, lams, FP.device_tables(dev).rate_consts, n_sb,
+                use_td)
+        cuda.reset_launches()
+        got = I4K.i4_scores(*args)
+        assert cuda.LAUNCHES["i4_search"] == 1
+        ref = I4K.i4_scores_plain(*args)
+        assert torch.equal(got[0], ref[0])
+        torch.testing.assert_close(got[1], ref[1], rtol=3e-7, atol=0)
+    c3 = got[0].reshape(B, mb_h, 4, mb_w, 4)[..., 3].cpu().numpy()
+    assert np.isin(c3, (2, 6, 7)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", [5, 6])
+@pytest.mark.parametrize("geom", [(72, 40), (32, 16)])
+def test_quality_methods_on_the_card_equal_the_cpu(geom, method):
+    """Methods 5 and 6 (the skew-2 loop with the trellis, and the in-loop
+    search, its steps replayed from a CUDA graph on the card) write the
+    CPU run's file; kernels 1-3 launch once each (kernel 1 only when
+    segmented) and kernel 4 not at all."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import cuda
+
+    w, h = geom
+    img = _images(1, h, w, seed=w + h + method)[0]
+    cuda.reset_launches()
+    got = webp_tpu_torch.encode(img, method=method)
+    assert dict(cuda.LAUNCHES) == {
+        "p1_alpha": int(w * h >= 4 * 256), "p1_mode": 1, "i4_search": 1,
+        "p2_wavefront": 0}
+    assert got == webp_tpu_torch.encode(img, device="cpu", method=method)
+
+
+def sharp_planes_within_tolerance(rgb, what):
+    """The sharp-YUV planes of rgb (numpy [B, H, W, 3]) on the card
+    against the CPU's: every sample within 1, at most one sample in 10^4
+    off (the card's powf is not the C library's). Returns the number of
+    differing samples."""
+    from webp_tpu_torch.ops import sharpyuv as SY
+
+    x = torch.as_tensor(rgb)
+    card = SY.sharp_yuv420(x.to("cuda"))
+    cpu = SY.sharp_yuv420(x)
+    n = total = 0
+    for c, p in zip(card, cpu):
+        d = (c.cpu().to(torch.int32) - p.to(torch.int32)).abs()
+        assert int(d.max()) <= 1, what
+        n += int((d != 0).sum())
+        total += d.numel()
+    assert n * 10_000 <= total, f"{what}: {n} of {total} samples differ"
+    return n
+
+
+@pytest.mark.cuda
+def test_sharp_yuv_on_the_card_within_tolerance():
+    """The card's sharp-YUV planes within the stated tolerance of the
+    CPU's, on a batch of two images and on a smooth 512x512 gradient; the
+    files of encode(use_sharp_yuv=True) equal the CPU's where the planes
+    do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import sharpyuv as SY
+
+    imgs = np.stack(_images(2, 48, 64, seed=12))
+    sharp_planes_within_tolerance(imgs, "64x48 B=2")
+    y, x = np.mgrid[0:512, 0:512]
+    smooth = np.stack([x // 2, y // 2, (x + y) // 4], -1).astype(np.uint8)
+    sharp_planes_within_tolerance(smooth[None], "smooth 512x512")
+    for img in imgs:
+        planes_equal = all(torch.equal(c.cpu(), p) for c, p in zip(
+            SY.sharp_yuv420(torch.as_tensor(img[None]).cuda()),
+            SY.sharp_yuv420(torch.as_tensor(img[None]))))
+        if planes_equal:
+            assert webp_tpu_torch.encode(img, use_sharp_yuv=True) == \
+                webp_tpu_torch.encode(img, device="cpu", use_sharp_yuv=True)
+
+
+@pytest.mark.cuda
 def test_stream_on_the_card_equals_encode_batch():
     """The pipelined stream (side-stream uploads, pinned fetches) writes
     encode_batch's files, a ragged last batch included."""

@@ -101,13 +101,41 @@ def test_phase2_planar_without_segments_or_i4_equals_reference(config):
 
 
 def test_phase2_planar_other_configurations_raise():
+    """Packing in the skewed layout (the reference's wire_pack) is the one
+    configuration not ported. Skew 2, the trellis and the in-loop search
+    are (test_phase2_planar_skew2_equals_reference below; the trellis and
+    the search through encode() in test_torch_method5.py and
+    test_torch_method6.py)."""
     z = torch.zeros((1, 16, 16), dtype=torch.uint8)
     m = torch.zeros((1, 1), dtype=torch.uint8)
-    for kw in ({"sk": 2}, {"trellis": True}, {"i4_search": ()},
-               {"wire_pack": 1}):
-        with pytest.raises(NotImplementedError):
-            PL.phase2_planar(z, z[:, :8, :8], z[:, :8, :8], m, m, None, 1,
-                             1, **kw)
+    with pytest.raises(NotImplementedError):
+        PL.phase2_planar(z, z[:, :8, :8], z[:, :8, :8], m, m, None, 1, 1,
+                         wire_pack=1)
+
+
+def test_phase2_planar_skew2_equals_reference():
+    """Phase 2 at skew 2 without the trellis or the search, unsegmented
+    with the I4 walk: levels and contours exact (32x32, 2x2 MBs, 4
+    anti-diagonals; the above-right strip comes from the MB reconstructed
+    one step before)."""
+    from webp_tpu.ops import pipeline as PP_ref
+    from webp_tpu_torch.ops import pipeline as PP
+
+    Y, U, V = _planes(1, 32, 32, 9)
+    rng = np.random.default_rng(10)
+    modes = rng.integers(0, 4, (1, 4)).astype(np.uint8)
+    uvmodes = rng.integers(0, 4, (1, 4)).astype(np.uint8)
+    is_i4 = np.array([[True, True, False, True]])
+    i4m = rng.integers(0, 10, (1, 4, 16)).astype(np.uint8)
+    args = (Y, U, V, modes, uvmodes)
+    ref = jax.jit(lambda *a: PL_ref.phase2_planar(
+        *a[:5], PP_ref.quant_params(75), 2, 2, rd_drop=1024.0, i4=a[5:],
+        sk=2))(*args, is_i4, i4m)
+    t = torch.as_tensor
+    got = PL.phase2_planar(*(t(a) for a in args), PP.quant_params(75), 2, 2,
+                           rd_drop=1024.0, i4=(t(is_i4), t(i4m)), sk=2)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
 @pytest.mark.parametrize("sk", [1, 2])
@@ -183,7 +211,20 @@ def test_rgbp_blob_equals_reference_byte_for_byte(geom):
 
 
 def test_fast_encode_fn_other_configurations_raise():
+    """A skew other than 1 or 2 raises. The quality settings (sharp YUV,
+    skew 2, the trellis, the in-loop search) build a program with the
+    reference's blob layout and sharp_yuv flag (their bytes are held
+    against the reference in test_torch_sharpyuv.py, test_torch_method5.py
+    and test_torch_method6.py)."""
+    with pytest.raises(ValueError):
+        FP.fast_encode_fn(4, 3, 75, 4, 50, sk=3)
     for kw in ({"sharp_yuv": True}, {"sk": 2}, {"trellis": True},
-               {"i4_mode_search": True}):
-        with pytest.raises(NotImplementedError):
-            FP.fast_encode_fn(4, 3, 75, 4, 50, **kw)
+               {"sk": 2, "trellis": True, "i4_mode_search": True}):
+        fn = FP.fast_encode_fn(4, 3, 75, 4, 50, **kw)
+        assert (fn.sharp_yuv, fn.sk, fn.trellis, fn.search) == (
+            kw.get("sharp_yuv", False), kw.get("sk", 1),
+            kw.get("trellis", False), kw.get("i4_mode_search", False))
+    kw = dict(sharp_yuv=True, sk=2, trellis=True, i4_mode_search=True)
+    fn = FP.fast_encode_fn(4, 3, 75, 4, 50, **kw)
+    ref = FP_ref.fast_encode_fn(4, 3, 75, 4, 50, **kw)
+    assert fn.blob_spec == ref.blob_spec and fn.sharp_yuv == ref.sharp_yuv

@@ -2,8 +2,8 @@
 
 Two kinds of library, both with a plain C interface loaded by ctypes:
 
-  * the host entropy coder and YUV importer (native/src, g++), used on
-    every encode;
+  * the host entropy coder, YUV importer and the C library's powf over
+    an array (native/src, g++), used on every encode;
   * the Hopper kernels (csrc/*.cu, nvcc for sm_90a), used when a kernel
     wrapper receives CUDA tensors.
 
@@ -44,7 +44,8 @@ GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 LIBS = {
     "webp_enc": ("g++", ["native/src/vp8_enc.cc",
                          "native/src/vp8_enc_loop.cc",
-                         "native/src/yuv_import.cc"],
+                         "native/src/yuv_import.cc",
+                         "native/src/powf_array.cc"],
                  ["native/src/bitio.h"]),
     "p1_alpha": ("nvcc", ["csrc/p1_alpha.cu"], ["csrc/common.cuh"]),
     "p1_mode": ("nvcc", ["csrc/p1_mode.cu"], ["csrc/common.cuh"]),

@@ -7,15 +7,19 @@ Counterpart of webp_tpu/encoder.py, its device branch:
 writes the file webp_tpu.encode(img, backend="device", **options) writes,
 byte for byte, for every option this package ports (EncoderOptions,
 presets, segments, SNS, filter and partition options, preprocessing and
-dithering, methods 0-4, ICC/EXIF/XMP metadata through VP8X). The device
+dithering, methods 0-6, sharp YUV, ICC/EXIF/XMP metadata through VP8X).
+Methods 5 and 6 run the closed loop at skew 2 with the trellis, 6 with
+the in-loop I4/UV search; use_sharp_yuv imports with the sharp-YUV
+refinement on the device. The device
 program runs on the card (device=None) or, with device="cpu", as the
 kernels' plain versions. Options that need a slice not ported yet raise
 NotImplementedError naming the ROADMAP item that brings them.
 
 The device path converts RGB to YUV on the device (ops/yuv.py, whose
-constants live here); the host planes of rgb_to_yuv420 feed only the
-exact host encoder that re-encodes an image whose escape list overflowed
-the device's capacity (lossy/device_encode.py).
+constants live here, or ops/sharpyuv.py); the host planes of
+rgb_to_yuv420 (or of the host sharp converter) feed only the exact host
+encoder that re-encodes an image whose escape list overflowed the
+device's capacity (lossy/device_encode.py).
 """
 
 from __future__ import annotations
@@ -164,11 +168,6 @@ def _unported(opts: EncoderOptions, a: np.ndarray) -> Optional[str]:
     if opts.autofilter:
         return "autofilter: the device path's autofilter needs the decoder, " \
                "ROADMAP item 13"
-    if opts.method >= 5:
-        return (f"method {opts.method}: skew 2, trellis and the in-loop "
-                "search are ROADMAP item 11")
-    if opts.use_sharp_yuv:
-        return "use_sharp_yuv: sharp-YUV is ROADMAP item 11"
     if _has_alpha(a):
         return ("alpha < 255: the ALPH chunk needs the lossless coder, "
                 "ROADMAP item 14")

@@ -7,8 +7,10 @@ The device returns each image's fields as one byte blob (BLOB_CHUNKS
 chunks); the host unpacks them, installs the device's segment plan into
 the frame header and entropy-codes the levels. An image whose escape
 list overflowed the device's capacity is re-encoded by the exact host
-encoder. encode_lossy_batch runs one batch; encode_lossy_stream pipelines
-a stream of batches (upload, compute and host tail overlapped).
+encoder (from host planes of the same import: sharp-YUV planes from the
+host converter sharpyuv/convert.py when the device imported with sharp
+YUV). encode_lossy_batch runs one batch; encode_lossy_stream pipelines a
+stream of batches (upload, compute and host tail overlapped).
 """
 
 from __future__ import annotations
@@ -61,9 +63,12 @@ class DeviceVP8Encoder(VP8Encoder):
         """One image (rgb_input) through the device program at B=1, its
         YUV import on the device, and the host tail. An escape list that
         overflows the device's capacity re-encodes the image with the exact
-        host encoder, from host planes imported then (with self.dithering).
-        device: None for the card, "cpu" for the plain versions. Methods
-        0-2 (or i4_blocks off) run without the I4 search."""
+        host encoder, from host planes imported then (with self.dithering;
+        with sharp YUV, the host sharp converter's planes of the padded
+        image, as the reference's). device: None for the card, "cpu" for
+        the plain versions. Methods 0-2 (or i4_blocks off) run without
+        the I4 search; methods 5 and 6 run the closed loop at skew 2 with
+        the trellis, 6 with the in-loop search."""
         from ..ops.fastpath import fast_encode_fn, unpack_output_blob
 
         use_i4 = bool(self.cfg.i4_blocks) and self.cfg.method >= 3
@@ -79,8 +84,12 @@ class DeviceVP8Encoder(VP8Encoder):
                                   fn.blob_spec)
         if int(host["esc_cnt"][0]) > fn.esc_cap:
             FALLBACKS["images"] += 1
-            Y, U, V = rgb_to_yuv420(
-                self.rgb_input[:self.height, :self.width], self.dithering)
+            if fn.sharp_yuv:
+                Y, U, V = _fallback_planes(self.rgb_input, fn)
+            else:
+                Y, U, V = rgb_to_yuv420(
+                    self.rgb_input[:self.height, :self.width],
+                    self.dithering)
             return VP8Encoder(Y, U, V, self.width, self.height,
                               self.cfg).encode()
         return self.finish({k: v[0] for k, v in host.items()})
@@ -179,14 +188,26 @@ def pad_to_macroblocks(rgbs):
     return pad
 
 
+def _fallback_planes(rgb, fn):
+    """Host YUV planes for the escape-overflow fallback, from the import
+    the device program used: the host sharp converter when fn imports
+    with sharp YUV, else the plain importer."""
+    if fn.sharp_yuv:
+        from ..sharpyuv.convert import sharp_rgb_to_yuv420
+
+        return sharp_rgb_to_yuv420(rgb)
+    return rgb_to_yuv420(rgb)
+
+
 def device_blob(rgbs, quality: int = 75, segments: int = 4,
-                sns_strength: int = 50, device=None):
+                sns_strength: int = 50, device=None, sharp_yuv=False):
     """Runs the device program on a batch: numpy uint8 [B, H, W, 3] (H, W
     multiples of 16) -> (fn, host field dict of numpy [B, ...] arrays)."""
     from ..ops.fastpath import fast_encode_fn, unpack_output_blob
 
     B, H, W, _ = rgbs.shape
-    fn = fast_encode_fn(W // 16, H // 16, quality, segments, sns_strength)
+    fn = fast_encode_fn(W // 16, H // 16, quality, segments, sns_strength,
+                        sharp_yuv=sharp_yuv)
     x = torch.from_numpy(np.ascontiguousarray(rgbs)).to(
         _resolve_device(device))
     chunks = fn.rgb_blob(x)
@@ -197,13 +218,14 @@ def device_blob(rgbs, quality: int = 75, segments: int = 4,
 def _emit(host, rgbs, fn, width, height, cfg, ex):
     """Host tail of one batch: entropy-codes each image's device fields on
     the pool, or re-encodes with the exact host encoder (from its RGB in
-    rgbs) an image whose escape list overflowed."""
+    rgbs, imported as fn's device import) an image whose escape list
+    overflowed."""
     overflow = host["esc_cnt"] > fn.esc_cap
     FALLBACKS["images"] += int(overflow.sum())
 
     def emit(i):
         if overflow[i]:
-            Y, U, V = rgb_to_yuv420(rgbs[i])
+            Y, U, V = _fallback_planes(rgbs[i], fn)
             return VP8Encoder(Y, U, V, width, height, cfg).encode()
         return planeless(width, height, cfg).finish(
             {k: v[i] for k, v in host.items()})
@@ -215,17 +237,19 @@ def encode_lossy_batch(rgbs, quality: int = 75, partitions: int = 0,
                        filter_strength: int = 60, num_threads: int = 8,
                        true_width: int = None, true_height: int = None,
                        segments: int = 4, sns_strength: int = 50,
-                       device=None):
+                       device=None, sharp_yuv: bool = False):
     """Batched device encode: one device program over a stack of
     same-sized images, then parallel host entropy coding (the native C++
     calls release the GIL).
 
     rgbs: numpy uint8 [B, H, W, 3] with H, W multiples of 16 (pre-padded).
-    device: None for the card, "cpu" for the plain versions.
+    device: None for the card, "cpu" for the plain versions. sharp_yuv:
+    import with the sharp-YUV refinement on the device.
     Returns a list of VP8 bitstreams.
     """
     B, H, W, _ = rgbs.shape
-    fn, host = device_blob(rgbs, quality, segments, sns_strength, device)
+    fn, host = device_blob(rgbs, quality, segments, sns_strength, device,
+                           sharp_yuv)
     cfg = LossyConfig(quality=quality, partitions=partitions,
                       filter_strength=filter_strength, segments=segments,
                       sns_strength=sns_strength)
@@ -263,10 +287,14 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
     (its native importer), which differ from its encode_batch's in the
     same way.
 
+    sharp_yuv imports with the sharp-YUV refinement, which runs on the
+    device from RGB, so it turns host_yuv off (as the reference's stream
+    does).
+
     The stream uses exactly the one device it is given: None means the
     card, "cpu" runs the plain versions (no streams or pinned memory, the
-    same three stages). The reference's multi-device path is not ported;
-    sharp_yuv is not ported and raises. An image whose escape list
+    same three stages). The reference's multi-device path is not ported.
+    An image whose escape list
     overflows is re-encoded by the exact host encoder from the caller's
     unpadded image, as the reference's stream does (encode_lossy_batch
     starts from the padded one, so on sizes that are not whole
@@ -278,15 +306,15 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
     from ..ops.fastpath import fast_encode_fn
 
     if sharp_yuv:
-        raise NotImplementedError("encode_lossy_stream: sharp-YUV is not "
-                                  "ported")
+        host_yuv = False  # the refinement runs on the device from RGB
     if not images:
         return []
     dev = _resolve_device(device)
     on_card = dev.type == "cuda"
     h, w = images[0].shape[:2]
     H, W = (h + 15) // 16 * 16, (w + 15) // 16 * 16
-    fn = fast_encode_fn(W // 16, H // 16, quality, segments, sns_strength)
+    fn = fast_encode_fn(W // 16, H // 16, quality, segments, sns_strength,
+                        sharp_yuv=sharp_yuv)
     cfg = LossyConfig(quality=quality, partitions=partitions,
                       filter_strength=filter_strength, segments=segments,
                       sns_strength=sns_strength)

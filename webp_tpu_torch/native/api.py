@@ -1,10 +1,10 @@
 """ctypes bindings for the encoder-side native library: the boolean
 writer, token emission, statistics, the closed-loop MB encode (the
-escape-overflow fallback), the analysis alphas and the RGB -> YUV 4:2:0
-importer.
+escape-overflow fallback), the analysis alphas, the RGB -> YUV 4:2:0
+importer and an elementwise powf.
 
-Sources: native/src/vp8_enc.cc, vp8_enc_loop.cc, yuv_import.cc and
-bitio.h. The library is compiled with g++ at first use
+Sources: native/src/vp8_enc.cc, vp8_enc_loop.cc, yuv_import.cc,
+powf_array.cc and bitio.h. The library is compiled with g++ at first use
 (webp_tpu_torch/_build.py).
 """
 
@@ -52,6 +52,9 @@ def _setup(lib):
         ct.c_void_p, ct.c_void_p, ct.c_void_p,
     ]
     lib.yuv_import.restype = None
+    lib.powf_array.argtypes = [ct.c_void_p, ct.c_float, ct.c_void_p,
+                               ct.c_long]
+    lib.powf_array.restype = None
     return lib
 
 
@@ -236,3 +239,13 @@ def native_yuv_import(rgb: np.ndarray):
     V = np.empty((mbh * 8, mbw * 8), dtype=np.uint8)
     lib.yuv_import(_ptr(rgb), h, w, _ptr(Y), _ptr(U), _ptr(V))
     return Y, U, V
+
+
+def powf_array(x: np.ndarray, e: float) -> np.ndarray:
+    """The C library's powf(x, e) over a float32 array (native/src/
+    powf_array.cc): bit for bit the reference's float32 pow on the CPU."""
+    lib = get()
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    y = np.empty_like(x)
+    lib.powf_array(_ptr(x), float(np.float32(e)), _ptr(y), x.size)
+    return y

@@ -7,15 +7,22 @@ webp_tpu/ops/fastpath.py, the batched planar main path).
   Phase 1 — fully parallel mode search with source-pixel context: I16 and
     UV (kernel 2, ops/p1_kernels.py), then the 10-mode I4 search
     (kernel 3, ops/i4_kernel.py) and the I4-vs-I16 split.
-  Phase 2 — the closed-loop skew-1 wavefront with modes fixed, fused with
-    nibble packing (kernel 4, ops/p2_kernel.py), then the escape list.
+  Phase 2 — the closed-loop wavefront. At skew 1 without trellis or
+    in-loop search (the main path, methods 0-4) the modes are fixed and
+    the wavefront is fused with nibble packing (kernel 4,
+    ops/p2_kernel.py), then the escape list. At the quality settings —
+    skew 2 with the trellis (method 5), plus the in-loop I4/UV search and
+    the closed-loop split (method 6) — it is the planar step loop
+    (ops/planar.py phase2_planar), then the unskewed pack, as the
+    reference routes them (its Pallas wavefront covers only the main
+    path).
 
 Configurations ported: segmented (segments > 1 and >= 4 macroblocks) or
 unsegmented (one quantizer, static lambdas, no phase 0), I4 on or off,
-SNS, skew 1, rd_drop; no trellis, no in-loop search, no sharp-YUV (those
-raise NotImplementedError: ROADMAP item 11). The quantizer, lambda and
-rate tables are derived here from the port's own lossy/ copies and moved
-to the device by tables_from_numpy().
+SNS, rd_drop, skew 1 or 2, the trellis, the in-loop search, and the
+sharp-YUV import (ops/sharpyuv.py) in place of the plain one. The
+quantizer, lambda and rate tables are derived here from the port's own
+lossy/ copies and moved to the device by tables_from_numpy().
 """
 
 from __future__ import annotations
@@ -428,6 +435,17 @@ def _pack_levels(lv24, esc_cap):
                                    lv24.reshape(B, -1, 16), esc_cap)
 
 
+def wire_from_levels(lv24, y2, esc_cap):
+    """Phase 2's levels lv24 i16 [B, n_mb, 24, 16] and y2 i16 [B, n_mb, 16]
+    -> the wire dict {packed, esc_idx, esc_val, esc_cnt, y2, skip} (the
+    reference's part3 after its scan); an MB is skipped when every level
+    is zero."""
+    packed, esc_idx, esc_val, esc_cnt = _pack_levels(lv24, esc_cap)
+    skip = (lv24 == 0).all(dim=-1).all(dim=-1) & (y2 == 0).all(dim=-1)
+    return {"packed": packed, "esc_idx": esc_idx, "esc_val": esc_val,
+            "esc_cnt": esc_cnt, "y2": y2, "skip": skip}
+
+
 def unpack_levels(packed, esc_idx, esc_blk, esc_cnt, n_mb):
     """Host-side (numpy) inverse of _pack_levels -> int16 [n_mb, 24, 16]."""
     lo = (packed & 0x0F).astype(np.int16)
@@ -533,17 +551,23 @@ class FastEncoder:
     and fn.blob(Yb, Ub, Vb) (YUV 4:2:0 planes) run the whole device program
     on the inputs' device and return the blob chunks (see _blobify);
     fn(Yb, Ub, Vb) returns the field dict.
-    fn.blob_spec, fn.esc_cap and fn.n_mb describe the output.
+    fn.blob_spec, fn.esc_cap and fn.n_mb describe the output;
+    fn.sharp_yuv says whether the RGB entries import with sharp YUV.
     """
 
     def __init__(self, mb_w, mb_h, quality, segments, sns_strength,
-                 i4_blocks, rd_drop):
+                 i4_blocks, rd_drop, sharp_yuv=False, sk=1, trellis=False,
+                 i4_mode_search=False):
         self.mb_w, self.mb_h = mb_w, mb_h
         self.quality = int(quality)
         self.segments = int(segments)
         self.sns = max(0, int(sns_strength))
         self.i4_blocks = bool(i4_blocks)
         self.rd_drop = float(rd_drop)
+        self.sharp_yuv = bool(sharp_yuv)
+        self.sk = int(sk)
+        self.trellis = bool(trellis)
+        self.search = bool(i4_mode_search) and self.i4_blocks
         self.n_mb = mb_w * mb_h
         self.use_segments = self.segments > 1 and self.n_mb >= 4
         self.esc_cap = max(1024, ESC_BLOCKS_PER_MB * self.n_mb)
@@ -609,26 +633,55 @@ class FastEncoder:
             src_rows, srcs, qtabs, lams["i16"], lams["uv"], tlsd4, seg_map,
             mb_w, mb_h, lam_mode4=lams["mode"])
         if self.i4_blocks:
+            # At skew 2 the loop reconstructs each MB's above-right
+            # neighbour first, so the rightmost subblock column may take
+            # the strip-reading modes (allow_tr).
             is_i4, i4_modes, _ = I4.i4_search(
                 Yb, seg_map, qtabs[:, :16].contiguous(), lams["i4"],
-                lams["mode"], tlsd4, i16_score, mb_w, mb_h)
+                lams["mode"], tlsd4, i16_score, mb_w, mb_h,
+                allow_tr=self.sk == 2)
         else:
             is_i4 = torch.zeros((B, n_mb), dtype=torch.bool, device=Yb.device)
             i4_modes = torch.zeros((B, n_mb, 16), dtype=torch.uint8,
                                    device=Yb.device)
         return (modes, uvmodes, is_i4, i4_modes, seg_map, seg_q, seg_beta,
-                qtabs, dq_uv_b)
+                qtabs, dq_uv_b, lams)
 
     def phase2(self, Yb, Ub, Vb, p1):
-        """Phase 2 with the modes of part1_batched (p1) fixed: the
-        closed-loop wavefront and the pack of its levels (kernel 4,
-        ops/p2_kernel.py) -> wire dict {packed, esc_idx, esc_val, esc_cnt,
-        y2, skip}."""
+        """Phase 2 on the modes of part1_batched (p1) -> wire dict
+        {packed, esc_idx, esc_val, esc_cnt, y2, skip}. At skew 1 without
+        trellis or search: kernel 4 (ops/p2_kernel.py), the wavefront and
+        the pack of its levels. Otherwise the planar step loop
+        (planar.phase2_planar) and the unskewed pack; with the in-loop
+        search the wire dict also carries the loop's is_i4, i4_modes and
+        uvmodes, which replace phase 1's."""
         from . import p2_kernel as P2K
+        from . import planar as PL
 
-        modes, uvmodes, is_i4, i4_modes, seg_map, _, _, qtabs, _ = p1
-        return P2K.phase2_pack(Yb, Ub, Vb, modes, uvmodes, is_i4, i4_modes,
-                               seg_map, qtabs, self.rd_drop, self.esc_cap)
+        modes, uvmodes, is_i4, i4_modes, seg_map, _, _, qtabs, _, lams = p1
+        if self.sk == 1 and not self.trellis and not self.search:
+            return P2K.phase2_pack(Yb, Ub, Vb, modes, uvmodes, is_i4,
+                                   i4_modes, seg_map, qtabs, self.rd_drop,
+                                   self.esc_cap)
+        B = Yb.shape[0]
+        # The unsegmented configuration's rows and lambdas are the same in
+        # every segment, so one segmented call covers both.
+        seg_rows = dict(zip(("y1", "y2", "uv"),
+                            qtabs.reshape(B, 3, 4, 4, 16).unbind(1)))
+        search = None
+        if self.search:
+            search = (None, lams["i4"], lams["i16"], lams["uv"],
+                      lams["mode"])
+        out = PL.phase2_planar(
+            Yb, Ub, Vb, modes, uvmodes, None, self.mb_w, self.mb_h,
+            rd_drop=self.rd_drop, seg=(seg_map, seg_rows),
+            i4=(is_i4, i4_modes) if self.i4_blocks else None, sk=self.sk,
+            trellis=self.trellis, i4_search=search,
+            graph=Yb.device.type == "cuda")
+        wire = wire_from_levels(out[0], out[1], self.esc_cap)
+        if search is not None:
+            wire.update(i4_modes=out[4], is_i4=out[5], uvmodes=out[6])
+        return wire
 
     def __call__(self, Yb, Ub, Vb):
         """Yb [B, H, W], Ub/Vb [B, H/2, W/2] u8 -> field dict [B, ...]."""
@@ -637,9 +690,14 @@ class FastEncoder:
 
     def pack(self, wire, p1):
         """The wire fields of phase2 plus the per-MB side fields of p1 ->
-        field dict [B, ...]."""
+        field dict [B, ...] (the in-loop search's modes and split, when
+        phase2 carries them, in place of phase 1's)."""
         (modes, uvmodes, is_i4, i4_modes, seg_map, seg_q, seg_beta,
-         _, dq_uv_b) = p1
+         _, dq_uv_b, _) = p1
+        wire = dict(wire)
+        is_i4 = wire.pop("is_i4", is_i4)
+        i4_modes = wire.pop("i4_modes", i4_modes)
+        uvmodes = wire.pop("uvmodes", uvmodes)
         B = modes.shape[0]
         imodes = torch.where(
             is_i4[..., None], i4_modes,
@@ -654,14 +712,25 @@ class FastEncoder:
         blob chunks."""
         return _blobify(self(Yb, Ub, Vb))
 
-    def rgb_blob(self, rgbs):
-        """rgbs: uint8 [B, H, W, 3] on the device -> blob chunks."""
+    def to_yuv(self, rgbs):
+        """uint8 [B, H, W, 3] -> YUV 4:2:0 planes on the same device: the
+        sharp-YUV refinement (ops/sharpyuv.py) or the plain import."""
+        if self.sharp_yuv:
+            from . import sharpyuv
+
+            return sharpyuv.sharp_yuv420(rgbs)
         from . import yuv as devyuv
 
-        return _blobify(self(*devyuv.rgb_to_yuv420(rgbs)))
+        return devyuv.rgb_to_yuv420(rgbs)
+
+    def rgb_blob(self, rgbs):
+        """rgbs: uint8 [B, H, W, 3] on the device -> blob chunks."""
+        return _blobify(self(*self.to_yuv(rgbs)))
 
     def rgbp_blob(self, rgbps):
         """rgbps: uint8 [B, 3, H, W] planes on the device -> blob chunks."""
+        if self.sharp_yuv:
+            return self.rgb_blob(rgbps.permute(0, 2, 3, 1))
         from . import yuv as devyuv
 
         return _blobify(self(*devyuv.rgb_planes_to_yuv420(
@@ -675,19 +744,22 @@ def fast_encode_fn(mb_w: int, mb_h: int, quality: int, segments: int = 1,
                    i4_mode_search: bool = False):
     """The batched encoder for one geometry (cached). rd_drop enables the
     trellis-lite RD dropout inside the closed loop (ops/planar.py
-    quantize_p); sharp_yuv, sk=2, trellis and i4_mode_search are not
-    ported yet (ROADMAP item 11)."""
-    if sharp_yuv or sk != 1 or trellis or i4_mode_search:
-        raise NotImplementedError(
-            "fast_encode_fn: sharp-YUV, skew 2, trellis and the in-loop "
-            "search are not ported (ROADMAP item 11)")
+    quantize_p); sharp_yuv imports RGB with the sharp-YUV refinement;
+    sk=2 runs the closed loop at skew 2 (the I4 search may then take the
+    strip-reading modes on the rightmost subblock column); trellis
+    requantizes the I4 subblocks with the trellis in the loop; and
+    i4_mode_search re-runs the I4 and UV searches and the I16-vs-I4 split
+    in the loop on exact rates (methods 5 and 6 set sk=2 and trellis, 6
+    also the search)."""
+    if sk not in (1, 2):
+        raise ValueError(f"fast_encode_fn: skew {sk} (1 or 2)")
     return _fast_encode_fn(int(mb_w), int(mb_h), int(quality), int(segments),
-                           int(sns_strength), bool(i4_blocks), float(rd_drop))
+                           int(sns_strength), bool(i4_blocks), float(rd_drop),
+                           bool(sharp_yuv), int(sk), bool(trellis),
+                           bool(i4_mode_search))
 
 
 @functools.lru_cache(maxsize=8)
-def _fast_encode_fn(mb_w, mb_h, quality, segments, sns_strength, i4_blocks,
-                    rd_drop):
-    return FastEncoder(mb_w, mb_h, quality, segments, sns_strength,
-                       i4_blocks, rd_drop)
+def _fast_encode_fn(*args):
+    return FastEncoder(*args)
 

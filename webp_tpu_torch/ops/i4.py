@@ -48,7 +48,7 @@ def ctx_mode_rate_delta(i4_modes):
     return cost.sum(dim=(-2, -1)).to(torch.float32)
 
 
-def _planar_inputs(Yb, seg_map, mb_w, mb_h):
+def _planar_inputs(Yb, seg_map, mb_w, mb_h, allow_tr=False):
     """The I4 kernel's rows u8 [32, B * n_sb] in subblock GRID order per
     image (lane b * n_sb + sy * SBX + sx).
 
@@ -58,7 +58,9 @@ def _planar_inputs(Yb, seg_map, mb_w, mb_h):
     above = sb-SBX, above-left = sb-SBX-1, above-right = sb-SBX+1) with the
     127/129 edge fills. A rightmost (c3) subblock takes the next MB's strip
     from the row above its whole MB row, the last MB column the rightmost
-    pixel of that row, and the top MB row 127."""
+    pixel of that row, and the top MB row 127. With allow_tr (skew 2,
+    where the loop reconstructs that strip first) row 29 is zero for
+    every subblock, so the kernel bans no mode anywhere."""
     B = Yb.shape[0]
     SBY, SBX = mb_h * 4, mb_w * 4
     n_sb = SBY * SBX
@@ -107,7 +109,7 @@ def _planar_inputs(Yb, seg_map, mb_w, mb_h):
                             torch.where(last_col, mb_edge, mb_int))
         trrows.append(torch.where(c3_mask, c3row,
                                   torch.where(top_row0, c127, interior)))
-    is_c3 = c3_mask.to(torch.uint8).expand(B, n_sb)
+    is_c3 = (c3_mask & (not allow_tr)).to(torch.uint8).expand(B, n_sb)
     seg_grid = seg_map.to(torch.uint8).reshape(B, mb_h, 1, mb_w, 1) \
         .expand(B, mb_h, 4, mb_w, 4).reshape(B, n_sb)
     rows = (lrows + [tl_f] + trows + trrows
@@ -127,21 +129,24 @@ def _seq_sum16(x):
 
 
 def i4_search(Yb, seg_map, qtab16, lam4, lam_mode4, tlsd4, i16_score,
-              mb_w, mb_h):
+              mb_w, mb_h, allow_tr=False):
     """Batched open-loop I4 search and I4-vs-I16 split (counterpart of
     i4_search_pallas, over the whole batch in one kernel launch).
 
     Yb: [B, H, W] luma; seg_map: [B, n_mb]; qtab16: i32 [B, 16, 16] y1
     quant rows (seg*4 + param, zigzag columns); lam4/lam_mode4: f32 [B, 4]
     per-segment I4 and split lambdas; tlsd4: f32 [B, 4] or None (TDisto
-    off); i16_score: f32 [B, n_mb]. Returns (is_i4 [B, n_mb] bool,
-    modes [B, n_mb, 16] u8, i4_score [B, n_mb] f32)."""
+    off); i16_score: f32 [B, n_mb]. allow_tr lifts the ban on the
+    above-right-reading modes in the rightmost subblock column (skew 2,
+    the reference's jnp search with allow_tr=True; the strip is the same
+    MB-level above-right strip either way). Returns (is_i4 [B, n_mb]
+    bool, modes [B, n_mb, 16] u8, i4_score [B, n_mb] f32)."""
     from .fastpath import device_tables
 
     B = Yb.shape[0]
     n_mb = mb_w * mb_h
     n_sb = 16 * n_mb
-    data = _planar_inputs(Yb, seg_map, mb_w, mb_h)
+    data = _planar_inputs(Yb, seg_map, mb_w, mb_h, allow_tr)
     use_td = tlsd4 is not None
     lams = torch.cat([lam4, tlsd4 if use_td else torch.zeros_like(lam4),
                       lam_mode4], dim=1).to(torch.float32).contiguous()

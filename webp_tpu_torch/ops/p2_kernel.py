@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import cuda
-from .fastpath import _pack_levels
+from .fastpath import wire_from_levels
 from .planar import phase2_planar
 
 
@@ -54,8 +54,7 @@ def phase2_pack_plain(Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map,
         Y, U, V, modes, uvmodes, None, W // 16, H // 16, rd_drop=rd_drop,
         seg=(seg_map, seg_rows),
         i4=(is_i4, i4_modes) if bool(is_i4.any()) else None)
-    skip = (lv24 == 0).all(dim=-1).all(dim=-1) & (y2 == 0).all(dim=-1)
-    return _wire(*_pack_levels(lv24, esc_cap), y2, skip)
+    return wire_from_levels(lv24, y2, esc_cap)
 
 
 def phase2_pack(Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map, qtab,
