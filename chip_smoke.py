@@ -5,10 +5,10 @@
 Phases, each of which raises on failure (the script then exits nonzero):
 
   1. The card's name and power limit (nvidia-smi) and torch's device name.
-  2. Builds the four CUDA kernels (nvcc, sm_90a) and the host library
-     (entropy coder and YUV importer, g++) from the checkout's sources, all
-     compilers at once, and prints each kernel's registers, shared memory
-     and spills as ptxas reported them.
+  2. Builds the four CUDA kernels (nvcc, sm_90a) and the host libraries
+     (entropy coder and YUV importer; the VP8 decoder and upsampler; g++)
+     from the checkout's sources, all compilers at once, and prints each
+     kernel's registers, shared memory and spills as ptxas reported them.
   3. The main path, counted: webp_tpu_torch.encode_batch on B=16 synthetic
      1536x1024 images (made from --seed), with every kernel's launch count
      set to 0 just before and read just after; each kernel must have run
@@ -59,6 +59,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
      10^4: the card's powf is not the C library's). Card files against CPU
      files on 64x48 and 72x40 at methods 5 and 6 (equal) and with sharp
      YUV (equal where the planes are).
+ 10. Decoding. 1536x1024 bitstreams from encode() on the card (the
+     defaults, method 6, the simple filter, no filter) decoded by
+     decode_rgba on the card (the host's token parse, then the skew-2 step
+     loop of reconstruction and loop filter replayed from a CUDA graph,
+     and the upsampling) equal the native decoder's pixels, with every
+     kernel's launch count 0 while decoding (the decode runs none of the
+     four); ms per image on both backends, the step loop's ms per step
+     with the graph and once without it; the pipelined decode stream over
+     32 images against 32 single decodes; card == CPU decodes at 64x48,
+     72x40 and 33x17 on every filter branch; encode() with autofilter,
+     target_size and target_psnr at full width (card == CPU at 64x48) and
+     with backend="host" (host time).
 
 Kernel times ("ms") are the card's own (runs queued behind a sleep, CUDA
 events); each kernel's time per call from an idle card, which also
@@ -90,6 +102,7 @@ sys.path.insert(0, HERE)
 
 W, H, B = 1536, 1024, 16
 QUALITY = 75
+CARD = torch.device("cuda")
 SCORE_RTOL = 3e-7
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the INT32 rate of
@@ -555,6 +568,172 @@ def quality_modes(seed, card, hold, imgs):
     return rec3, quality
 
 
+def decoding(seed, card, imgs):
+    """Phase 10: the device decode at full width and what the decoder
+    unblocks in encode(). Bitstreams of 1536x1024 images from encode() on
+    the card at the defaults (the normal loop filter), at method 6 (I4
+    rich), with the simple filter and without a filter: decode_rgba on the
+    card (backend="device") equals the native decoder's (backend="host")
+    on each, with every kernel launch count 0 while decoding; ms per image
+    on both backends, the step loop's ms per step replayed from its CUDA
+    graph and, once, without it; decode_lossy_stream_device over 32
+    images against 32 single decodes; the card's decode against the CPU's
+    plain versions at 64x48, 72x40 and 33x17 on the three filter
+    branches; autofilter and rate control on the card (wall time, passes,
+    size or PSNR against the target at full width; card == CPU files at
+    64x48); encode(backend="host") on the host."""
+    import dataclasses
+
+    import webp_tpu_torch
+    from webp_tpu_torch import encoder as ENC
+    from webp_tpu_torch.container.parser import Parser
+    from webp_tpu_torch.lossy import decode as DEC
+    from webp_tpu_torch.lossy import device_decode as DD
+    from webp_tpu_torch.ops import cuda as KC
+
+    rng = np.random.default_rng(seed + 10)
+    img = synth_images(rng, 1, H, W)[0]
+    px = W * H
+    files = {}
+    for label, opts in (("normal filter (defaults)", {}),
+                        ("method 6", dict(method=6)),
+                        ("simple filter", dict(filter_type=0)),
+                        ("no filter", dict(filter_strength=0))):
+        files[label], enc_s = once(lambda: webp_tpu_torch.encode(img, **opts))
+        check_webp(files[label], W, H)
+        bs = Parser(files[label]).frames()[0].bitstream
+        parsed = DD._parse_inputs(bs)
+        ftype = int(parsed[0]["finfo"][0])
+        n_i4 = int(parsed[0]["is_i4"].sum())
+        KC.reset_launches()
+        dev, first_s = once(lambda: webp_tpu_torch.decode_rgba(files[label]))
+        launches = dict(KC.LAUNCHES)
+        if any(launches.values()):
+            raise AssertionError(f"decode {label}: kernels launched "
+                                 f"{launches}")
+        host = webp_tpu_torch.decode_rgba(files[label], backend="host")
+        if not np.array_equal(dev, host):
+            raise AssertionError(f"decode {label}: device and host pixels "
+                                 "differ")
+        dev_s = wall_s(lambda: webp_tpu_torch.decode_rgba(files[label]), 3)
+        host_s = wall_s(lambda: webp_tpu_torch.decode_rgba(
+            files[label], backend="host"), 3)
+        fn = DD._fn(parsed, True)
+        ins = [t.to(CARD) for t in DD._host_inputs(parsed)]
+        prog_s = wall_s(lambda: fn(*ins), 3)
+        # The step loop alone, on the inputs of this bitstream.
+        xs = {}
+        loop = fn.loop(1, ins[0].device)
+        orig = loop.run
+
+        def grab(x, graph):
+            xs.update(x)
+            return orig(x, graph)
+        loop.run = grab
+        try:
+            fn(*ins)
+        finally:
+            del loop.run
+        if not xs:
+            raise AssertionError("the decode did not run the step loop")
+        loop_s = wall_s(lambda: loop.run(xs, True), 3)
+        eager = ""
+        if label.startswith("normal"):
+            _, eager_s = once(lambda: loop.run(xs, False))
+            eager = (f"; without the graph {eager_s:.3f} s, "
+                     f"{eager_s / fn.steps * 1e3:.3f} ms per step")
+            if not np.array_equal(webp_tpu_torch.decode_rgba(files[label]),
+                                  host):
+                raise AssertionError("decode after the eager run differs")
+        print(f"decode {label}: {W}x{H}, {len(files[label])} bytes (encode() "
+              f"on the card {enc_s:.3f} s), filter type {ftype}, {n_i4} I4 "
+              f"MBs; device == host pixels; launches while decoding "
+              f"{launches}; decode_rgba on the card {dev_s * 1e3:.1f} ms per "
+              f"image (first call, graph capture included, "
+              f"{first_s * 1e3:.1f} ms), its device program (inputs "
+              f"resident) {prog_s * 1e3:.1f} ms, the step loop "
+              f"{loop_s * 1e3:.1f} ms for {fn.steps} steps, "
+              f"{loop_s / fn.steps * 1e3:.3f} ms per step replayed{eager}; "
+              f"the native host decoder {host_s * 1e3:.1f} ms per image "
+              f"(host time); {card}", flush=True)
+
+    # The stream over 32 images against 32 single decodes.
+    files32 = webp_tpu_torch.encode_batch(list(imgs) + list(imgs), QUALITY)
+    bss = [Parser(f).frames()[0].bitstream for f in files32]
+    KC.reset_launches()
+    outs, stream_s = once(lambda: DD.decode_lossy_stream_device(bss))
+    if any(KC.LAUNCHES.values()):
+        raise AssertionError(f"decode stream: kernels launched "
+                             f"{dict(KC.LAUNCHES)}")
+    singles, single_s = once(lambda: [DD.decode_vp8_rgb_device(b)
+                                      for b in bss])
+    for o, g, b in zip(outs, singles, bss[:2]):
+        if not np.array_equal(o, DEC.decode_vp8_rgba(b)[..., :3]):
+            raise AssertionError("decode stream differs from the host")
+    if not all(np.array_equal(o, g) for o, g in zip(outs, singles)):
+        raise AssertionError("decode stream differs from single decodes")
+    n = len(bss)
+    print(f"decode stream: decode_lossy_stream_device over {n} images "
+          f"{W}x{H} {n * px / stream_s / 1e6:.2f} Mpx/s ({stream_s:.3f} s); "
+          f"{n} single decodes {n * px / single_s / 1e6:.2f} Mpx/s "
+          f"({single_s:.3f} s); outputs equal; {card}", flush=True)
+
+    # The card's decode against the CPU's plain versions, small images.
+    for (w, h) in ((64, 48), (72, 40), (33, 17)):
+        small = synth_images(rng, 1, h, w)[0]
+        for opts in ({}, dict(filter_type=0), dict(filter_strength=0),
+                     dict(method=6)):
+            bs = Parser(webp_tpu_torch.encode(small, backend="host",
+                                              **opts)).frames()[0].bitstream
+            for up in (False, True):
+                fn_in = DD._parse_inputs(bs)
+                on_card = DD._run_device(fn_in, up, CARD)
+                on_cpu = DD._run_device(fn_in, up, torch.device("cpu"))
+                on_card = [on_card] if up else on_card
+                on_cpu = [on_cpu] if up else on_cpu
+                if not all(torch.equal(c.cpu(), p)
+                           for c, p in zip(on_card, on_cpu)):
+                    raise AssertionError(f"decode {w}x{h} {opts}: card and "
+                                         "CPU differ")
+    print("decode parity: the card's device decode == the CPU's plain "
+          "versions, byte for byte, on 64x48, 72x40 and 33x17 with the "
+          "normal, simple and no filter and at method 6 (planes and RGB)",
+          flush=True)
+
+    # The options the decoder unblocks, on the card.
+    default_size = len(files["normal filter (defaults)"])
+    default_psnr = ENC._psnr_of(img, files["normal filter (defaults)"])
+    target_size = int(default_size * 0.7)
+    target_psnr = round(default_psnr - 2.0, 1)
+    runs = (("autofilter", dict(autofilter=True)),
+            (f"target_size={target_size}", dict(target_size=target_size)),
+            (f"target_psnr={target_psnr}", dict(target_psnr=target_psnr)))
+    small = synth_images(rng, 1, 48, 64)[0]
+    for label, opts in runs:
+        data, s_ = once(lambda: webp_tpu_torch.encode(img, **opts))
+        st = ENC.LAST_STATS
+        check_webp(data, W, H)
+        got = webp_tpu_torch.encode(small, **opts)
+        st_small = dataclasses.astuple(ENC.LAST_STATS)
+        if got != webp_tpu_torch.encode(small, device="cpu", **opts) or \
+                st_small != dataclasses.astuple(ENC.LAST_STATS):
+            raise AssertionError(f"{label}: card and CPU files differ at "
+                                 "64x48")
+        print(f"encode {label}: {W}x{H} on the card {s_:.3f} s wall, "
+              f"{st.passes} pass(es), {len(data)} bytes (defaults: "
+              f"{default_size}), LAST_STATS.psnr {st.psnr:.3f} dB (the "
+              f"defaults' file: {default_psnr:.3f} dB over RGB) at q "
+              f"{st.quality:.2f}; "
+              f"card == CPU file and stats at 64x48; {card}", flush=True)
+        if "target_size" in opts and len(data) > target_size:
+            raise AssertionError(f"{label}: {len(data)} bytes over target")
+    data, host_s = once(lambda: webp_tpu_torch.encode(img, backend="host"))
+    check_webp(data, W, H)
+    print(f"encode backend=host: {W}x{H} {host_s:.3f} s wall on the card "
+          f"machine's host CPU (host time, no device), {len(data)} bytes, "
+          f"PSNR {ENC.LAST_STATS.psnr:.3f} dB", flush=True)
+
+
 class Recorder:
     """Wraps a kernel wrapper so that the main path's call records its
     (card) inputs; the kernel and its plain version are then held against
@@ -605,7 +784,8 @@ def main(argv=None):
 
     # 2. Build every library of the path, all compilers at once.
     t0 = time.perf_counter()
-    spent = _build.build(["webp_enc"] + list(_build.KERNEL_LIBS))
+    spent = _build.build(["webp_enc", "webp_dec"]
+                         + list(_build.KERNEL_LIBS))
     print(f"build: {time.perf_counter() - t0:.1f} s wall; per library "
           + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()), flush=True)
     for lib in _build.KERNEL_LIBS:
@@ -771,8 +951,8 @@ def main(argv=None):
     imgs32 = list(imgs) + list(synth_images(rng, B, H, W))
     runs = {
         "stream": lambda: [riff.assemble_riff([riff.Chunk(riff.VP8, b)])
-                           for b in DE.encode_lossy_stream(imgs32, QUALITY,
-                                                           batch=B)],
+                           for b in DE.encode_lossy_stream(
+                               imgs32, QUALITY, batch=B, host_yuv=False)],
         "batch": lambda: [f for i in range(0, len(imgs32), B)
                           for f in webp_tpu_torch.encode_batch(
                               imgs32[i:i + B], QUALITY)]}
@@ -807,6 +987,9 @@ def main(argv=None):
 
     # 9. The quality modes: methods 5 and 6, sharp YUV.
     rec3, quality = quality_modes(args.seed, card, hold, imgs)
+
+    # 10. Decoding on the card, and the options the decoder unblocks.
+    decoding(args.seed, card, imgs)
     k3 = next(k for k in kernels if k["name"] == "i4_search")
     k3["quality_launches"] = {m: v["i4_search"] for m, v in quality.items()}
     k3["quality_ms"], k3["quality_plain_ms"] = rec3["ms"], rec3["plain_ms"]

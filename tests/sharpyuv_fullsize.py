@@ -1,6 +1,7 @@
 """The port's sharp YUV against the reference's at full size, on the CPU.
 
     JAX_PLATFORMS=cpu python tests/sharpyuv_fullsize.py [--w 1536 --h 1024]
+        [--more]
 
 Prints, per image, the samples of Y, U and V where
 webp_tpu_torch.ops.sharpyuv.sharp_yuv420 differs from the reference's
@@ -14,7 +15,11 @@ above float32's rounding of a sum of this many terms, the order and width
 of the sum cannot change the decision.
 
 The images: a smooth gradient (the content on which a one-ulp `pow`
-difference flips a sample) and two of chip_smoke.py's photo-like images.
+difference flips a sample) and two of chip_smoke.py's photo-like images;
+with --more also seven on which the refinement behaves differently:
+uniform noise (two iterations), saturated noise, one-pixel red/blue and
+two-pixel red/green checkerboards, sparse dots on two backgrounds and a
+mosaic of saturated and mid-grey noise (three iterations each).
 Not a test: the reference's program at this size is too slow to compile
 for the tier-1 run."""
 
@@ -54,13 +59,20 @@ def exit_sums(rgb):
     best_uv = target_uv
     thr = 3.0 * w * h
     out, prev64, prev32, done = [], None, None, False
+    y_rec = best_y
     for it in range(SY.NUM_ITERATIONS):
         if done:
             break
-        rec = SY._interpolate(best_y, best_uv)
-        diff_y = SY._fma(w_target, SY.MAX_Y,
-                         -(SY._w_unscaled(rec) * SY.MAX_Y))
-        best_y = torch.clamp(best_y + diff_y, 0.0, SY.MAX_Y)
+        rec = SY._interpolate(y_rec, best_uv)
+        w_rec = SY._w_unscaled(rec)
+        diff_y = SY._fma(-w_rec, SY.MAX_Y, w_target * SY.MAX_Y)
+        new_y = torch.clamp(best_y + diff_y, 0.0, SY.MAX_Y)
+        if it == 0:
+            diff_y = SY._fma(w_target, SY.MAX_Y, -(w_rec * SY.MAX_Y))
+            y_rec = torch.clamp(best_y + diff_y, 0.0, SY.MAX_Y)
+        best_y = new_y
+        if it > 0:
+            y_rec = best_y
         best_uv = best_uv + (target_uv - SY._update_chroma(rec))
         s64 = float(diff_y.abs().sum(dtype=torch.float64))
         s32 = float(diff_y.abs().sum(dtype=torch.float32))
@@ -74,16 +86,45 @@ def exit_sums(rgb):
     return out
 
 
+def more_images(h, w, seed):
+    """Seven images on which the refinement runs two or three iterations
+    (see the module docstring)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+
+    def pick(cond, a, b):
+        return np.where(cond[..., None], a, b)
+
+    dots = (x % 4 == 0) & (y % 4 == 0)
+    imgs = {
+        "noise": rng.integers(0, 256, (h, w, 3)),
+        "saturated_noise": rng.integers(0, 2, (h, w, 3)) * 255,
+        "checker_rb": pick((x + y) % 2 == 1, [255, 0, 0], [0, 0, 255]),
+        "checker_rg2": pick((x // 2 + y // 2) % 2 == 1, [255, 0, 0],
+                            [0, 255, 0]),
+        "dots": pick(dots, [255, 255, 0], [0, 0, 80]),
+        "dots_noisy": pick(dots, [255, 230, 0], [0, 20, 140])
+        + rng.integers(0, 30, (h, w, 3)),
+        "mosaic": pick((x // 7 + y // 5) % 3 == 0,
+                       rng.integers(0, 2, (h, w, 3)) * 255,
+                       rng.integers(60, 200, (h, w, 3))),
+    }
+    return {k: np.clip(v, 0, 255).astype(np.uint8) for k, v in imgs.items()}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--w", type=int, default=1536)
     ap.add_argument("--h", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--more", action="store_true")
     a = ap.parse_args()
     imgs = {"smooth": smooth(a.h, a.w)}
     for i, img in enumerate(synth_images(np.random.default_rng(a.seed), 2,
                                          a.h, a.w)):
         imgs[f"photo{i}"] = img
+    if a.more:
+        imgs.update(more_images(a.h, a.w, a.seed))
     ref_fn = jax.jit(SY_ref.sharp_yuv420)
     total = 0
     for name, img in imgs.items():
@@ -103,6 +144,7 @@ def main():
                   f"{s32!r} (float32); exit {d64} / {d32}; relative "
                   f"margin {m:.3e}", flush=True)
     print(f"total differing samples: {total}")
+    return total
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The single-image entry end to end on the CPU: webp_tpu_torch.encode(img,
 device="cpu", **options) (every kernel's plain version) writes the file
 webp_tpu.encode(img, backend="device", **options) writes, byte for byte,
-for the options this package ports, and raises NotImplementedError for
+for the options this package ports (backend="host" writes the file of
+the reference's default backend), and raises NotImplementedError for
 those it does not port yet. Methods 5 and 6 and sharp YUV are held here
 by the device program's settings (as the reference's encode() asks for
 them) and byte for byte in test_torch_method5.py, test_torch_method6.py
@@ -151,10 +152,7 @@ def test_single_configuration_runs_no_alpha_kernel_and_no_i4_search(
     assert not any(bool(t.any()) for t in seen.values())
 
 
-@pytest.mark.parametrize("opts", [
-    dict(backend="host"), dict(backend="auto"), dict(autofilter=True),
-    dict(target_size=2000), dict(target_psnr=40.0), dict(lossless=True),
-    "alpha"], ids=str)
+@pytest.mark.parametrize("opts", [dict(lossless=True), "alpha"], ids=str)
 def test_options_outside_the_slice_raise_not_implemented(opts):
     """Each option whose slice is not ported raises before any work and
     names where it is planned; so does an image with alpha < 255."""
@@ -162,8 +160,37 @@ def test_options_outside_the_slice_raise_not_implemented(opts):
     if opts == "alpha":
         img, opts = _opaque_rgba(img), {}
         img[0, 0, 3] = 0
-    with pytest.raises(NotImplementedError, match="ROADMAP|device path"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         webp_tpu_torch.encode(img, device="cpu", **opts)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(backend="host"), dict(backend="auto"), dict(TEXT, autofilter=True),
+    dict(target_size=2000), dict(target_psnr=40.0)], ids=str)
+def test_options_the_decoder_unblocked_equal_the_reference(opts):
+    """The options that raised until the decoder was ported write the
+    reference's files at 32x16: the host backend (the reference's
+    default), "auto" (the device program in both packages), autofilter
+    on the device path (with the text preset, whose device program the
+    other 32x16 cases compile) and rate control (on the host backend
+    here: on the device one every pass is a new reference program;
+    tests/test_torch_ratecontrol.py holds that controller)."""
+    img = _images(1, 16, 32, 13)[0]
+    if "target_size" in opts or "target_psnr" in opts:
+        opts = dict(opts, backend="host")
+    got = webp_tpu_torch.encode(img, device="cpu", **opts)
+    stats = dataclasses.astuple(webp_tpu_torch.LAST_STATS)
+    if opts.get("backend") == "auto":
+        assert got == webp_tpu_torch.encode(img, device="cpu")
+        return
+    assert got == webp_tpu.encode(img, **dict(dict(backend="device"),
+                                              **opts))
+    assert stats == dataclasses.astuple(ENC_ref.LAST_STATS)
+
+
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError, match="backend"):
+        webp_tpu_torch.encode(_images(1, 16, 32, 13)[0], backend="tpu")
 
 
 @pytest.mark.parametrize("opts", [dict(method=5), dict(method=6),

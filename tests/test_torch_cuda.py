@@ -1,6 +1,7 @@
 """The port on the card: each kernel against its plain version on the
-slice's inputs (kernel 4 also on random modes), and the card's files
-against the CPU run's, byte for byte. These tests import neither JAX nor the reference package, so they
+slice's inputs (kernel 4 also on random modes), the card's files against
+the CPU run's, byte for byte, and the device decode on the card against
+the host decoder. These tests import neither JAX nor the reference package, so they
 also run on a machine with a card and no JAX:
 
     python -m pytest --noconftest -m cuda -p no:cacheprovider tests/test_torch_cuda.py
@@ -426,17 +427,115 @@ def test_sharp_yuv_on_the_card_within_tolerance():
 
 @pytest.mark.cuda
 def test_stream_on_the_card_equals_encode_batch():
-    """The pipelined stream (side-stream uploads, pinned fetches) writes
-    encode_batch's files, a ragged last batch included."""
+    """The pipelined stream (side-stream uploads, pinned fetches) with
+    device YUV writes encode_batch's files, a ragged last batch
+    included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from webp_tpu_torch.container import riff
     from webp_tpu_torch.lossy.device_encode import encode_lossy_stream
 
     imgs = _images(5, 40, 72, seed=2)
-    got = encode_lossy_stream(imgs, 75, batch=2)
+    got = encode_lossy_stream(imgs, 75, batch=2, host_yuv=False)
     assert [riff.assemble_riff([riff.Chunk(riff.VP8, b)]) for b in got] == \
         webp_tpu_torch.encode_batch(imgs, 75, device="cuda")
+
+
+def _vp8(img, **opts):
+    """The VP8 bitstream of the port's host encode of img."""
+    from webp_tpu_torch.container.parser import Parser
+
+    data = webp_tpu_torch.encode(img, backend="host", **opts)
+    return Parser(data).frames()[0].bitstream
+
+
+# The three branches of the device decode: the normal filter, the simple
+# filter (luma only) and no filter, at ragged sizes, I4-rich at method 6.
+DECODE_CASES = {
+    "normal_72x40": ((72, 40), dict(quality=40)),
+    "normal_m6_33x17": ((33, 17), dict(quality=60, method=6)),
+    "simple_72x40": ((72, 40), dict(quality=40, filter_type=0)),
+    "simple_m6_50x30": ((50, 30), dict(quality=60, method=6,
+                                        filter_type=0)),
+    "nofilter_33x17": ((33, 17), dict(quality=70, filter_strength=0)),
+    "nofilter_m6_64x48": ((64, 48), dict(quality=80, method=6,
+                                         filter_strength=0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_device_decode_on_the_card_equals_host_decoder(name):
+    """The device decode on the card (its steps replayed from a CUDA
+    graph) gives the native decoder's planes and RGB, launches none of the
+    four encode kernels, and equals the same loop without the graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.lossy import decode as dec
+    from webp_tpu_torch.lossy import device_decode as dd
+    from webp_tpu_torch.ops import cuda
+
+    (w, h), opts = DECODE_CASES[name]
+    bs = _vp8(_images(1, h, w, seed=w * h)[0], **opts)
+    cuda.reset_launches()
+    planes = dd.decode_vp8_yuv_device(bs)
+    rgb = dd.decode_vp8_rgb_device(bs)
+    assert not any(cuda.LAUNCHES.values())
+    for got, want in zip(planes, dec.decode_vp8_yuv(bs)):
+        assert np.array_equal(got, want)
+    assert np.array_equal(rgb, dec.decode_vp8_rgba(bs)[..., :3])
+    fn = dd._fn(dd._parse_inputs(bs), True)
+    fn.graph = False
+    try:
+        assert np.array_equal(dd.decode_vp8_rgb_device(bs), rgb)
+    finally:
+        fn.graph = True
+    # The cached graph replays from step 0 on a second bitstream.
+    bs2 = _vp8(_images(1, h, w, seed=w * h + 1)[0], **opts)
+    assert np.array_equal(dd.decode_vp8_rgb_device(bs2),
+                          dec.decode_vp8_rgba(bs2)[..., :3])
+
+
+@pytest.mark.cuda
+def test_decode_api_and_stream_on_the_card():
+    """decode()'s default backend runs on the card and equals the host
+    backend; decode_lossy_stream_device over six bitstreams of mixed
+    sizes and filter types equals the single decodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.lossy import decode as dec
+    from webp_tpu_torch.lossy import device_decode as dd
+
+    img = _images(1, 40, 72, seed=3)[0]
+    data = webp_tpu_torch.encode(img, backend="host", method=6)
+    assert np.array_equal(webp_tpu_torch.decode(data),
+                          webp_tpu_torch.decode(data, backend="host"))
+    datas = [_vp8(_images(1, h, w, seed=i)[0], **o)
+             for i, ((w, h), o) in enumerate(DECODE_CASES.values())]
+    for bs, rgb in zip(datas, dd.decode_lossy_stream_device(datas)):
+        assert np.array_equal(rgb, dec.decode_vp8_rgba(bs)[..., :3])
+    for bs, pl in zip(datas, dd.decode_lossy_stream_device(
+            datas, upsample=False)):
+        for got, want in zip(pl, dec.decode_vp8_yuv(bs)):
+            assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [
+    dict(autofilter=True), dict(autofilter=True, use_sharp_yuv=True),
+    dict(target_size=1500), dict(target_psnr=32.0, method=6)], ids=str)
+def test_unblocked_options_on_the_card_equal_the_cpu(opts):
+    """autofilter and rate control on the device backend write the CPU
+    run's file, with the same LAST_STATS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    img = _images(1, 48, 64, seed=11)[0]
+    got = webp_tpu_torch.encode(img, **opts)
+    stats = dataclasses.astuple(webp_tpu_torch.LAST_STATS)
+    assert got == webp_tpu_torch.encode(img, device="cpu", **opts)
+    assert stats == dataclasses.astuple(webp_tpu_torch.LAST_STATS)
 
 
 def test_launch_signatures_match_the_cuda_sources():

@@ -82,15 +82,27 @@ def sharp_ref():
 
 
 @pytest.mark.parametrize("case", ["noise64x48", "images72x40",
-                                  "smooth256x256"])
+                                  "smooth256x256", "saturated192x128",
+                                  "photo384x256"])
 def test_sharp_yuv420_equals_reference(case, sharp_ref):
     """Y, U and V equal the reference's device conversion exactly; two
     images in one batch each equal their own (the early exit is per
-    image)."""
+    image). The last two are the smallest images found on which the
+    reference's float order shows: saturated noise, whose refinement runs
+    three iterations (its 2x2 means summed in sequence and the luma
+    difference's two contractions decide a sample), and a photo-like
+    image of chip_smoke.py's that stops after two."""
     if case == "noise64x48":
         imgs = [_noise(48, 64, 1), _noise(48, 64, 2)]
     elif case == "images72x40":
         imgs = _images(2, 40, 72, 5)
+    elif case == "saturated192x128":
+        imgs = [(np.random.default_rng(1).integers(0, 2, (128, 192, 3))
+                 * 255).astype(np.uint8)]
+    elif case == "photo384x256":
+        from chip_smoke import synth_images
+
+        imgs = [synth_images(np.random.default_rng(0), 1, 256, 384)[0]]
     else:
         imgs = [_smooth(256, 256)]
     got = SY.sharp_yuv420(torch.as_tensor(np.stack(imgs)))

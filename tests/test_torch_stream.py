@@ -68,10 +68,11 @@ def _files(bitstreams):
 
 
 def test_stream_equals_encode_batch_with_a_ragged_last_batch():
-    """5 images at 72x40 in batches of 2 (the last batch holds 1): the
-    stream's files equal encode_batch's byte for byte."""
+    """5 images at 72x40 in batches of 2 (the last batch holds 1): with
+    device YUV the stream's files equal encode_batch's byte for byte."""
     imgs = _images(5, 40, 72, 1)
-    got = DE.encode_lossy_stream(imgs, 75, batch=2, device="cpu")
+    got = DE.encode_lossy_stream(imgs, 75, batch=2, host_yuv=False,
+                                 device="cpu")
     assert _files(got) == webp_tpu_torch.encode_batch(imgs, 75,
                                                       device="cpu")
 
@@ -96,8 +97,8 @@ def test_stream_host_yuv_uploads_the_native_importers_planes():
 
 
 def test_stream_host_yuv_equals_reference_stream():
-    """With host YUV (the reference's stream default once its native
-    importer is built) the port's stream writes the reference stream's
+    """Both streams at their default host_yuv (host YUV: the reference's
+    once its native importer is built, the port's always) write the same
     bitstreams: 5 images at 120x88 (not whole macroblocks) in batches of 2,
     a ragged last batch, q99. One noise image overflows its escape list
     (48 MBs, 1152 blocks, cap 1024) and takes the exact host fallback,
@@ -107,11 +108,9 @@ def test_stream_host_yuv_equals_reference_stream():
     imgs[3] = np.random.default_rng(9).integers(0, 256, (88, 120, 3),
                                                  np.uint8)
     DE.FALLBACKS["images"] = 0
-    got = DE.encode_lossy_stream(imgs, 99, batch=2, host_yuv=True,
-                                 device="cpu")
+    got = DE.encode_lossy_stream(imgs, 99, batch=2, device="cpu")
     assert DE.FALLBACKS["images"] == 1, "premise: one image falls back"
-    assert got == de_ref.encode_lossy_stream(imgs, 99, batch=2,
-                                             host_yuv=True)
+    assert got == de_ref.encode_lossy_stream(imgs, 99, batch=2)
 
 
 def test_stream_default_device_is_the_card_and_never_falls_back():

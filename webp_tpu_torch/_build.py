@@ -3,7 +3,9 @@
 Two kinds of library, both with a plain C interface loaded by ctypes:
 
   * the host entropy coder, YUV importer and the C library's powf over
-    an array (native/src, g++), used on every encode;
+    an array (native/src, g++), used on every encode; and the host VP8
+    decoder with its token parse and fancy upsampler (native/src, g++),
+    used on every decode;
   * the Hopper kernels (csrc/*.cu, nvcc for sm_90a), used when a kernel
     wrapper receives CUDA tensors.
 
@@ -46,6 +48,9 @@ LIBS = {
                          "native/src/vp8_enc_loop.cc",
                          "native/src/yuv_import.cc",
                          "native/src/powf_array.cc"],
+                 ["native/src/bitio.h"]),
+    "webp_dec": ("g++", ["native/src/vp8_dec.cc",
+                         "native/src/upsample.cc"],
                  ["native/src/bitio.h"]),
     "p1_alpha": ("nvcc", ["csrc/p1_alpha.cu"], ["csrc/common.cuh"]),
     "p1_mode": ("nvcc", ["csrc/p1_mode.cu"], ["csrc/common.cuh"]),

@@ -1,25 +1,33 @@
 """The single-image entry point and the host RGB -> YUV 4:2:0 import.
 
-Counterpart of webp_tpu/encoder.py, its device branch:
+Counterpart of webp_tpu/encoder.py:
 
     encode(img, device=None, **options) -> bytes
 
-writes the file webp_tpu.encode(img, backend="device", **options) writes,
-byte for byte, for every option this package ports (EncoderOptions,
-presets, segments, SNS, filter and partition options, preprocessing and
-dithering, methods 0-6, sharp YUV, ICC/EXIF/XMP metadata through VP8X).
-Methods 5 and 6 run the closed loop at skew 2 with the trellis, 6 with
-the in-loop I4/UV search; use_sharp_yuv imports with the sharp-YUV
-refinement on the device. The device
-program runs on the card (device=None) or, with device="cpu", as the
-kernels' plain versions. Options that need a slice not ported yet raise
-NotImplementedError naming the ROADMAP item that brings them.
+writes the file webp_tpu.encode(img, **options) writes, byte for byte,
+for every option this package ports (EncoderOptions, presets, segments,
+SNS, filter and partition options, autofilter, target size and PSNR,
+preprocessing and dithering, methods 0-6, sharp YUV, ICC/EXIF/XMP
+metadata through VP8X), with one difference of default: the port's
+backend is "device" (its entry points run on the card unless the caller
+asks for the CPU), the reference's "host". So encode(img) equals
+webp_tpu.encode(img, backend="device") and encode(img, backend="host")
+equals webp_tpu.encode(img).
+
+backend="device" (or "auto", which the reference also runs on its device
+program whenever a device exists) runs the device program on `device`:
+the card for None, the kernels' plain versions for "cpu"; with no card,
+device=None raises. backend="host" runs the exact host encoder
+(lossy/encode.py VP8Encoder with its native MB loop) on host planes.
+Lossless and alpha < 255 raise NotImplementedError naming the ROADMAP
+item that brings them.
 
 The device path converts RGB to YUV on the device (ops/yuv.py, whose
 constants live here, or ops/sharpyuv.py); the host planes of
-rgb_to_yuv420 (or of the host sharp converter) feed only the exact host
-encoder that re-encodes an image whose escape list overflowed the
-device's capacity (lossy/device_encode.py).
+rgb_to_yuv420 (or of the host sharp converter) feed the host backend,
+the device path's autofilter search and the exact host encoder that
+re-encodes an image whose escape list overflowed the device's capacity
+(lossy/device_encode.py).
 """
 
 from __future__ import annotations
@@ -37,8 +45,10 @@ MAX_DIMENSION = 16383
 
 @dataclass
 class EncoderOptions:
-    """Mirrors the reference's EncoderOptions (encode.go:42-187). The
-    port's backend is "device", its only one."""
+    """Mirrors the reference's EncoderOptions (encode.go:42-187). backend:
+    "device" (the default: the device program, on the card unless
+    encode() is given device="cpu"), "auto" (the same program) or "host"
+    (the exact host encoder; the reference's default)."""
 
     lossless: bool = False
     quality: float = 75.0
@@ -87,9 +97,11 @@ def options_for_preset(preset: str, quality: float = 75.0) -> EncoderOptions:
 
 @dataclass
 class EncStats:
-    """Per-encode statistics (the reference's EncStats). The device path
-    keeps no host reconstruction, so psnr stays 0.0, as in the
-    reference."""
+    """Per-encode statistics (the reference's EncStats). psnr comes from
+    the encoder's host reconstruction: the host backend's own, the device
+    path's autofilter probe decode, or a rate-controlled encode's decoded
+    file; a device encode without autofilter keeps none, so its psnr
+    stays 0.0, as in the reference."""
 
     psnr: float = 0.0
     size: int = 0
@@ -153,31 +165,26 @@ def _has_alpha(a: np.ndarray) -> bool:
     return a.shape[2] == 4 and bool((a[..., 3] != 255).any())
 
 
+BACKENDS = ("device", "auto", "host")
+
+
 def _unported(opts: EncoderOptions, a: np.ndarray) -> Optional[str]:
     """Why these options need a slice that is not ported yet (the ROADMAP
     item that brings it), or None."""
-    if opts.backend != "device":
-        return (f'backend="{opts.backend}": only the device path is ported '
-                "(the host encoder runs only as the escape-overflow "
-                "fallback)")
     if opts.lossless:
-        return "lossless: the VP8L encoder is ROADMAP item 14"
-    if opts.target_size > 0 or opts.target_psnr > 0:
-        return ("target_size/target_psnr: rate control needs the decoder, "
-                "ROADMAP item 13")
-    if opts.autofilter:
-        return "autofilter: the device path's autofilter needs the decoder, " \
-               "ROADMAP item 13"
+        return ('lossless: the VP8L encoder is ROADMAP.md queue 1 item 3, '
+                '"Lossless and alpha"')
     if _has_alpha(a):
-        return ("alpha < 255: the ALPH chunk needs the lossless coder, "
-                "ROADMAP item 14")
+        return ('alpha < 255: the ALPH chunk needs the lossless coder, '
+                'ROADMAP.md queue 1 item 3, "Lossless and alpha"')
     return None
 
 
 def encode(img, device=None, **options) -> bytes:
-    """Encodes an RGB(A) uint8 array [h, w, 3|4] to a WebP file, the
-    device program on `device` (None: the card; "cpu": the plain
-    versions). Keyword options are EncoderOptions' fields, or
+    """Encodes an RGB(A) uint8 array [h, w, 3|4] to a WebP file. The
+    device backends run on `device` (None: the card; "cpu": the plain
+    versions); backend="host" runs on the host whatever `device` says.
+    Keyword options are EncoderOptions' fields, or
     options=EncoderOptions(...). An RGBA image whose alpha is 255
     everywhere encodes as RGB."""
     a = _to_array(img)
@@ -187,22 +194,165 @@ def encode(img, device=None, **options) -> bytes:
     h, w = a.shape[:2]
     if w == 0 or h == 0 or w > MAX_DIMENSION or h > MAX_DIMENSION:
         raise WebPError("webp: invalid dimensions")
+    if opts.backend not in BACKENDS:
+        raise ValueError(f"webp_tpu_torch.encode: unknown backend "
+                         f"{opts.backend!r} (one of {BACKENDS})")
     why = _unported(opts, a)
     if why is not None:
         raise NotImplementedError(f"webp_tpu_torch.encode: {why}")
+    if opts.target_size > 0 or opts.target_psnr > 0:
+        return _encode_lossy_rate_controlled(a, opts, device)
     return _encode_lossy(a, opts, device)
 
 
-def _encode_lossy(a: np.ndarray, opts: EncoderOptions, device) -> bytes:
-    """The reference's _encode_lossy, device branch: the padded RGB for the
-    device, host entropy coding; host YUV planes only for the overflow
-    fallback, imported when it is taken."""
-    from .lossy.device_encode import pad_to_macroblocks, planeless
-    from .lossy.encode import LossyConfig
+def _psnr_of(a: np.ndarray, data: bytes) -> float:
+    """PSNR of a file's pixels (the host decoder's) against the image."""
+    from . import decode_rgba
+
+    out = decode_rgba(data, backend="host")[..., : a.shape[2]]
+    mse = float(np.mean((out.astype(np.float64) - a.astype(np.float64)) ** 2))
+    return 99.0 if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def _encode_lossy_rate_controlled(a: np.ndarray, opts: EncoderOptions,
+                                  device) -> bytes:
+    """Multi-pass rate control toward target_size / target_psnr (the
+    reference's, encoder.py:260-370): the size(quality) curve modelled as
+    a power law and stepped by secant in log-log space, the host YUV
+    import computed once and reused by every pass, the probes at a
+    reduced method (<= 2) and one landing pass at the configured method,
+    then corrective passes down while a size target is missed. Works with
+    every backend."""
+    import math
+    from dataclasses import replace
+
+    global LAST_STATS
+    q = opts.quality if 0 < opts.quality <= 100 else 75.0
+    max_passes = max(3, opts.pass_count) if opts.pass_count > 1 else 3
+    yuv_cache: dict = {}
+    probe_opts = (replace(opts, method=min(2, opts.method))
+                  if opts.method > 2 else opts)
+    history = []       # (q, size or psnr)
+    best_hit = None    # (q, data, ...) the best result meeting the target
+    best_any = None
+
+    def next_q_size(target):
+        if len(history) == 1:
+            q1, s1 = history[0]
+            return q1 * (target / s1) ** 0.8
+        (q1, s1), (q2, s2) = history[-2], history[-1]
+        if s1 == s2 or q1 == q2:
+            return q2 * (target / s2) ** 0.8
+        b = (math.log(s2) - math.log(s1)) / (math.log(q2) - math.log(q1))
+        if abs(b) < 1e-6:
+            return q2 * (target / s2) ** 0.8
+        return math.exp(math.log(q2) + (math.log(target) - math.log(s2)) / b)
+
+    def one_pass(o, q_):
+        return _encode_lossy(a, replace(o, quality=q_, target_size=0,
+                                        target_psnr=0.0), device,
+                             _yuv_cache=yuv_cache)
+
+    probes_are_full = probe_opts is opts
+    for p in range(max_passes):
+        data = one_pass(probe_opts, q)
+        if opts.target_size > 0:
+            size = len(data)
+            history.append((q, size))
+            if size <= opts.target_size and \
+                    (best_hit is None or q > best_hit[0]):
+                best_hit = (q, data)
+            if best_any is None or size < len(best_any[1]):
+                best_any = (q, data)
+            if opts.target_size * 0.95 <= size <= opts.target_size:
+                break
+            # Aim slightly under, so that the landing zone is [0.95, 1.0].
+            q = max(1.0, min(100.0, next_q_size(0.97 * opts.target_size)))
+        else:
+            psnr = _psnr_of(a, data)
+            history.append((q, 10.0 ** (psnr / 10.0)))
+            if psnr >= opts.target_psnr and \
+                    (best_hit is None or q < best_hit[0]):
+                best_hit = (q, data)
+            if best_any is None or psnr > best_any[2]:
+                best_any = (q, data, psnr)
+            if opts.target_psnr <= psnr <= opts.target_psnr + 0.5:
+                break
+            q = max(1.0, min(100.0,
+                             next_q_size(10.0 ** (opts.target_psnr / 10.0))))
+        if history and abs(q - history[-1][0]) < 0.5:
+            break
+    if not probes_are_full:
+        # The landing pass at the configured method on the probes' quality
+        # (reduced-method probes code slightly larger and at a lower PSNR
+        # than the full method at equal q, so the choice is conservative).
+        q_land = (best_hit if best_hit is not None else best_any)[0]
+        data = one_pass(opts, q_land)
+        p += 1
+        if opts.target_size > 0 and len(data) <= opts.target_size:
+            best_hit = (q_land, data)
+        elif opts.target_size > 0:
+            best_hit = None          # the cap is missed: corrective passes
+            history.append((q_land, len(data)))
+        else:
+            best_hit = (q_land, data)
+    if opts.target_size > 0 and best_hit is None:
+        # The size target is a hard cap: passes down until under it.
+        q, size = min(history, key=lambda hq: hq[1])
+        for _ in range(3):
+            q = max(1.0, q * min(0.9, (opts.target_size / size) ** 1.2))
+            data = one_pass(opts, q)
+            p += 1
+            size = len(data)
+            if size <= opts.target_size:
+                best_hit = (q, data)
+                break
+            if q <= 1.0:
+                break
+        if best_hit is None:
+            best_hit = (q, data)     # the q = 1 floor: the smallest file
+    q_used, data = (best_hit if best_hit is not None else best_any)[:2]
+    LAST_STATS = EncStats(psnr=_psnr_of(a, data), size=len(data),
+                          quality=q_used, passes=p + 1)
+    return data
+
+
+def _host_planes(rgb, opts: EncoderOptions, dither: float, sharp: bool,
+                 cache):
+    """The host YUV planes of the image (the host sharp converter's with
+    sharp, else the dithered import), reused from `cache` when a previous
+    pass of a rate-controlled encode made the same ones."""
+    key = ("sharp",) if sharp else ("plain", round(dither, 6))
+    if cache is not None and cache.get("key") == key:
+        return cache["planes"]
+    if sharp:
+        from .sharpyuv.convert import sharp_rgb_to_yuv420
+
+        planes = sharp_rgb_to_yuv420(rgb)
+    else:
+        planes = rgb_to_yuv420(rgb, dithering=dither)
+    if cache is not None:
+        cache.update(key=key, planes=planes)
+    return planes
+
+
+def _encode_lossy(a: np.ndarray, opts: EncoderOptions, device,
+                  _yuv_cache: dict = None) -> bytes:
+    """The reference's _encode_lossy. Device backends: the padded RGB goes
+    to the device program, host entropy coding; host planes only where
+    the autofilter search reads them (the plain dithered import, even
+    with sharp YUV, as the reference's), else the overflow fallback
+    imports its own when it is taken. Host backend: the exact host
+    encoder on host planes (sharp or dithered), PSNR from its
+    reconstruction."""
+    from .lossy.device_encode import (DeviceVP8Encoder, pad_to_macroblocks,
+                                      planeless)
+    from .lossy.encode import LossyConfig, VP8Encoder
 
     global LAST_STATS
     h, w = a.shape[:2]
     rgb = a[..., :3]
+    use_device = opts.backend in ("device", "auto")
     dither = opts.dithering
     if opts.preprocessing & 2 and dither <= 0.0:
         # preprocessing bit 1 = pseudo-random dithering, amplitude from
@@ -223,11 +373,30 @@ def _encode_lossy(a: np.ndarray, opts: EncoderOptions, device) -> bytes:
         partition_limit=int(opts.partition_limit),
         preprocessing=int(opts.preprocessing),
     )
-    enc = planeless(w, h, cfg)
-    enc.dithering = dither
-    enc.rgb_input = pad_to_macroblocks(rgb[None])[0]
-    vp8 = enc.encode(device=device)
-    LAST_STATS = EncStats(size=len(vp8), quality=opts.quality, passes=1,
+    if not use_device:
+        Y, U, V = _host_planes(rgb, opts, dither, opts.use_sharp_yuv,
+                               _yuv_cache)
+        enc = VP8Encoder(Y, U, V, w, h, cfg)
+        vp8 = enc.encode()
+    else:
+        if opts.autofilter:
+            Y, U, V = _host_planes(rgb, opts, dither, False, _yuv_cache)
+            enc = DeviceVP8Encoder(Y, U, V, w, h, cfg)
+        else:
+            enc = planeless(w, h, cfg)
+        enc.dithering = dither
+        enc.rgb_input = pad_to_macroblocks(rgb[None])[0]
+        vp8 = enc.encode(device=device)
+    # PSNR from the encoder's own reconstruction where it exists on the
+    # host (the reference's, lossy/encode.go:1614-1626).
+    psnr = 0.0
+    rec = enc.recY
+    if np.any(rec):
+        d = (rec.astype(np.float64) - enc.srcY.astype(np.float64)).ravel()
+        se = float(np.dot(d, d))
+        psnr = 99.0 if se == 0 else 10.0 * np.log10(255.0 ** 2 * rec.size / se)
+    LAST_STATS = EncStats(psnr=psnr, size=len(vp8), quality=opts.quality,
+                          passes=1,
                           part0_size=getattr(enc, "stats_part0", 0),
                           token_sizes=tuple(getattr(enc, "stats_parts", ())))
     if not (opts.iccp or opts.exif or opts.xmp):

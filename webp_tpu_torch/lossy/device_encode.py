@@ -136,10 +136,6 @@ class DeviceVP8Encoder(VP8Encoder):
             self.filter_level = plan.fstrength[0]
 
     def _finish_bitstream(self) -> bytes:
-        if self.cfg.autofilter:
-            raise NotImplementedError(
-                "the device path's autofilter needs the VP8 decoder, which "
-                "is not ported")
         total = self.mb_h * self.mb_w
         self.num_skip = int(self.skip.sum())
         self.skip_proba = max(1, min(255, (total - self.num_skip) * 255 // total)) \
@@ -150,6 +146,8 @@ class DeviceVP8Encoder(VP8Encoder):
 
         self._optimize_probas()
         parts = [self._emit_tokens(i) for i in range(self.num_parts)]
+        if self.cfg.autofilter:
+            _finish_autofilter(self, parts)
         part0 = self._emit_partition0()
         self.stats_part0 = len(part0)
         self.stats_parts = [len(p) for p in parts]
@@ -167,6 +165,29 @@ class DeviceVP8Encoder(VP8Encoder):
         for p in parts:
             out += p
         return bytes(out)
+
+
+def _finish_autofilter(enc, parts) -> None:
+    """The device path's autofilter: the device keeps no host
+    reconstruction, so the bitstream is probe-decoded with the in-loop
+    filter off (the native decoder) to recover the unfiltered
+    reconstruction, on which the host's filter-strength search runs
+    (VP8Encoder.autofilter_search against the encoder's host planes)."""
+    from .decode import decode_vp8_yuv
+
+    for i in range(4):
+        enc.plan.fstrength[i] = 0
+    enc.filter_level = 0
+    probe = enc._assemble_vp8(enc._emit_partition0(), parts)
+    Y, _, _ = decode_vp8_yuv(probe)
+    recY = np.zeros((enc.mb_h * 16, enc.mb_w * 16), np.uint8)
+    recY[:Y.shape[0], :Y.shape[1]] = Y
+    if Y.shape[1] < recY.shape[1]:
+        recY[:Y.shape[0], Y.shape[1]:] = Y[:, -1:]
+    if Y.shape[0] < recY.shape[0]:
+        recY[Y.shape[0]:] = recY[Y.shape[0] - 1]
+    enc.recY = recY
+    enc.autofilter_search()
 
 
 # Images that took the exact host fallback since the last reset (read by
@@ -260,7 +281,7 @@ def encode_lossy_batch(rgbs, quality: int = 75, partitions: int = 0,
 
 def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
                         partitions: int = 0, filter_strength: int = 60,
-                        num_threads: int = 12, host_yuv: bool = False,
+                        num_threads: int = 12, host_yuv: bool = None,
                         segments: int = 4, sns_strength: int = 50,
                         sharp_yuv: bool = False, device=None):
     """Pipelined encode of a stream of same-sized images (counterpart of
@@ -279,13 +300,15 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
     waits on before the host pool entropy-codes it. Python only blocks on
     the previous batch's fetch, never on the current compute.
 
-    host_yuv is off by default, so that the files equal encode_batch's:
-    the host importer takes its chroma from the reference's gamma tables
+    host_yuv=None (the default) means host YUV, as the reference's
+    stream default does once its native importer is built (the port's is
+    always built; a failed build raises): the files are those of the
+    reference's stream at its defaults. They differ from encode_batch's
+    on some images: the host importer takes its chroma from gamma tables
     with interpolation, the device conversion (ops/yuv.py) from float
-    power curves, and the two differ by 1 on some chroma samples. With
-    host_yuv=True the files are those of the reference's stream default
-    (its native importer), which differ from its encode_batch's in the
-    same way.
+    power curves, and the two differ by 1 on some chroma samples (in the
+    reference too). host_yuv=False converts on the device, and then the
+    files equal encode_batch's.
 
     sharp_yuv imports with the sharp-YUV refinement, which runs on the
     device from RGB, so it turns host_yuv off (as the reference's stream
@@ -307,6 +330,8 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
 
     if sharp_yuv:
         host_yuv = False  # the refinement runs on the device from RGB
+    elif host_yuv is None:
+        host_yuv = True
     if not images:
         return []
     dev = _resolve_device(device)

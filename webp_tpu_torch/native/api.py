@@ -1,11 +1,18 @@
-"""ctypes bindings for the encoder-side native library: the boolean
-writer, token emission, statistics, the closed-loop MB encode (the
-escape-overflow fallback), the analysis alphas, the RGB -> YUV 4:2:0
-importer and an elementwise powf.
+"""ctypes bindings for the port's two native libraries.
 
-Sources: native/src/vp8_enc.cc, vp8_enc_loop.cc, yuv_import.cc,
-powf_array.cc and bitio.h. The library is compiled with g++ at first use
-(webp_tpu_torch/_build.py).
+The encoder side (get()): the boolean writer, token emission,
+statistics, the closed-loop MB encode (the escape-overflow fallback and
+the host backend), the analysis alphas, the RGB -> YUV 4:2:0 importer
+and an elementwise powf; sources native/src/vp8_enc.cc, vp8_enc_loop.cc,
+yuv_import.cc, powf_array.cc and bitio.h.
+
+The decoder side (get_dec()): the VP8 keyframe decoder (vp8_decode), its
+parse-only half for the device decode (vp8_parse), the loop filter's
+SIMD self-test and the fancy-upsampling YUV 4:2:0 -> RGB(A) converter;
+sources native/src/vp8_dec.cc, upsample.cc and bitio.h.
+
+Both are compiled with g++ at first use (webp_tpu_torch/_build.py); a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -249,3 +256,130 @@ def powf_array(x: np.ndarray, e: float) -> np.ndarray:
     y = np.empty_like(x)
     lib.powf_array(_ptr(x), float(np.float32(e)), _ptr(y), x.size)
     return y
+
+
+# --- Decoder side -----------------------------------------------------------
+
+
+def _setup_dec(lib):
+    tabs = [ct.c_void_p] * 6
+    lib.vp8_decode.argtypes = [ct.c_void_p, ct.c_long] + tabs + \
+        [ct.c_void_p] * 4
+    lib.vp8_decode.restype = ct.c_int
+    lib.vp8_parse.argtypes = [ct.c_void_p, ct.c_long] + tabs + \
+        [ct.c_void_p] * 6
+    lib.vp8_parse.restype = ct.c_int
+    lib.vp8_filter_selftest.argtypes = [ct.c_int]
+    lib.vp8_filter_selftest.restype = ct.c_int
+    lib.yuv420_to_rgb_fancy.argtypes = [
+        ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_int,
+        ct.c_int, ct.c_int, ct.c_void_p, ct.c_int,
+    ]
+    lib.yuv420_to_rgb_fancy.restype = None
+    return lib
+
+
+_dec = None
+
+
+def get_dec():
+    """The decoder-side library, built from native/src at first use."""
+    global _dec
+    if _dec is None:
+        _dec = _setup_dec(_build.load("webp_dec"))
+    return _dec
+
+
+def _dec_tables():
+    """The spec tables the native decoder reads, in its argument order."""
+    from ..lossy import tables as T
+
+    return (np.ascontiguousarray(T.COEFFS_PROBA0, dtype=np.uint8),
+            np.ascontiguousarray(T.COEFFS_UPDATE_PROBA, dtype=np.uint8),
+            np.ascontiguousarray(T.DC_TABLE, dtype=np.int32),
+            np.ascontiguousarray(T.AC_TABLE, dtype=np.int32),
+            np.ascontiguousarray(T.BMODE_PROBA, dtype=np.uint8),
+            np.ascontiguousarray(T.YMODES_INTRA4_TREE, dtype=np.int8))
+
+
+def _dec_error(rc: int, what: str):
+    from ..lossy.decode import VP8Error
+
+    return VP8Error(f"vp8: native {what} failed" if rc == -1
+                    else "vp8: premature EOF in tokens")
+
+
+def vp8_decode(data: bytes):
+    """Native VP8 keyframe decode -> ((Y, U, V) MB-padded planes, (w, h)).
+    Raises VP8Error on a bad header or truncated tokens."""
+    from ..container.parser import parse_vp8_dimensions
+
+    lib = get_dec()
+    w, h = parse_vp8_dimensions(data)
+    mbw, mbh = (w + 15) >> 4, (h + 15) >> 4
+    Y = np.zeros((mbh * 16, mbw * 16), dtype=np.uint8)
+    U = np.zeros((mbh * 8, mbw * 8), dtype=np.uint8)
+    V = np.zeros((mbh * 8, mbw * 8), dtype=np.uint8)
+    dims = np.zeros(4, dtype=np.int32)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    tabs = _dec_tables()
+    rc = lib.vp8_decode(_ptr(buf), len(data), *map(_ptr, tabs), _ptr(Y),
+                        _ptr(U), _ptr(V), _ptr(dims))
+    if rc != 0:
+        raise _dec_error(rc, "decode")
+    return (Y, U, V), (w, h)
+
+
+def vp8_parse(data: bytes) -> dict:
+    """Parse-only native decode for the device reconstruction: headers
+    and the token pass, exporting dequantized coefficients and per-MB
+    info: dict(coeffs i16 [n_mb, 24, 16], bnz u8 [n_mb, 24],
+    is_i4/uvmode/segment/has_nz u8 [n_mb], imodes u8 [n_mb, 16],
+    finfo i32 [1 + 32] (the filter type, then per segment and I4 flag:
+    limit, ilevel, hev threshold, inner), dims (mb_w, mb_h, w, h)).
+    Raises VP8Error on a bad header or truncated tokens."""
+    from ..container.parser import parse_vp8_dimensions
+
+    lib = get_dec()
+    w, h = parse_vp8_dimensions(data)
+    mbw, mbh = (w + 15) >> 4, (h + 15) >> 4
+    nmb = mbw * mbh
+    coeffs = np.zeros((nmb, 24, 16), dtype=np.int16)
+    bnz = np.zeros((nmb, 24), dtype=np.uint8)
+    info = np.zeros((nmb, 4), dtype=np.uint8)
+    imodes = np.zeros((nmb, 16), dtype=np.uint8)
+    finfo = np.zeros(1 + 4 * 2 * 4, dtype=np.int32)
+    dims = np.zeros(4, dtype=np.int32)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    tabs = _dec_tables()
+    rc = lib.vp8_parse(_ptr(buf), len(data), *map(_ptr, tabs),
+                       _ptr(coeffs), _ptr(bnz), _ptr(info), _ptr(imodes),
+                       _ptr(finfo), _ptr(dims))
+    if rc != 0:
+        raise _dec_error(rc, "parse")
+    return {"coeffs": coeffs, "bnz": bnz, "is_i4": info[:, 0],
+            "uvmode": info[:, 1], "segment": info[:, 2],
+            "has_nz": info[:, 3], "imodes": imodes, "finfo": finfo,
+            "dims": tuple(int(d) for d in dims)}
+
+
+def vp8_filter_selftest(seed: int = 0) -> int:
+    """The native loop filter's SIMD edge filters against its scalar ones
+    on pseudo-random planes: 0 when bit-exact (or when the library was
+    built without the SIMD filters), else the 1-based failing case."""
+    return int(get_dec().vp8_filter_selftest(int(seed)))
+
+
+def native_upsample_rgba(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                         nch: int = 4) -> np.ndarray:
+    """Fancy-upsampled YUV 4:2:0 -> RGB(A) u8 [h, w, nch] (alpha 255).
+    Accepts row-strided plane views (crops of MB-padded planes)."""
+    lib = get_dec()
+    h, w = y.shape
+    if u.strides != v.strides or u.strides[1] != 1 or y.strides[1] != 1:
+        raise ValueError("native_upsample_rgba: planes need unit column "
+                         "strides, U and V the same row stride")
+    out = np.empty((h, w, nch), dtype=np.uint8)
+    lib.yuv420_to_rgb_fancy(_ptr(y), y.strides[0], _ptr(u), _ptr(v),
+                            u.strides[0], w, h, _ptr(out), nch)
+    return out

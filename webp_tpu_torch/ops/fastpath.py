@@ -399,6 +399,44 @@ def _tlsd_from_seg(sns: int, seg_q, seg_map):
 
 
 # ---------------------------------------------------------------------------
+# Shared prediction math, lanes-first layout: every mode builder takes
+# [..., S] context rows (the planar forms are ops/planar.py's).
+# ---------------------------------------------------------------------------
+
+def _preds4(size, top, left, tl, has_top, has_left):
+    """[..., size] contexts (int32), tl and has_* [...] -> [..., 4, size,
+    size] predictions (DC/TM/V/H), the missing edges filled with 127 above
+    and 129 on the left."""
+    shift = 5 if size == 16 else 4
+    top_m = torch.where(has_top[..., None], top, 127)
+    left_m = torch.where(has_left[..., None], left, 129)
+    tl_m = torch.where(has_top & has_left, tl,
+                       127 + 2 * has_top.to(torch.int32))
+    sum_t = top_m.sum(dim=-1, dtype=torch.int32)
+    sum_l = left_m.sum(dim=-1, dtype=torch.int32)
+    dc = torch.where(
+        has_top & has_left, (sum_t + sum_l + size) >> shift,
+        torch.where(has_top, (sum_t + (size >> 1)) >> (shift - 1),
+                    torch.where(has_left, (sum_l + (size >> 1)) >> (shift - 1),
+                                0x80)))
+    shape = dc.shape + (size, size)
+    pred_dc = dc[..., None, None].expand(shape)
+    pred_v = top_m[..., None, :].expand(shape)
+    pred_h = left_m[..., :, None].expand(shape)
+    pred_tm = (left_m[..., :, None] + top_m[..., None, :]
+               - tl_m[..., None, None]).clamp(0, 255)
+    return torch.stack([pred_dc, pred_tm, pred_v, pred_h], dim=-3)
+
+
+def _unblock(x, size):
+    """[..., (size/4)^2, 4, 4] raster 4x4 blocks -> [..., size, size]."""
+    b = size // 4
+    lead = x.shape[:-3]
+    return x.reshape(*lead, b, b, 4, 4).transpose(-3, -2).reshape(
+        *lead, size, size)
+
+
+# ---------------------------------------------------------------------------
 # Device-side nibble packing.
 # ---------------------------------------------------------------------------
 

@@ -19,6 +19,7 @@ import torch
 
 from ..lossy.cost import FIXED_COSTS_I4
 from . import i4_kernel as K
+from .planar import _a2, _a3
 
 # Static per-mode signalling cost of the open-loop search: the DC,DC
 # context row of FIXED_COSTS_I4.
@@ -126,6 +127,68 @@ def _seq_sum16(x):
     for k in range(1, 16):
         acc = acc + x[..., k]
     return acc
+
+
+def _rows(*rows):
+    """Stack 4 [..., 4] rows into [..., 4, 4]."""
+    return torch.stack(rows, dim=-2)
+
+
+def pred4_all(t, l, tl, tr):
+    """All 10 B-mode predictions, lanes-first (ops/planar.py pred4_all_p
+    is the planar form).
+
+    t: [..., 4] top row; l: [..., 4] left column; tl: [...]; tr: [..., 4]
+    above-right; int32. Returns a list of 10 [..., 4, 4] int32 tensors in
+    mode order DC, TM, VE, HE, RD, VR, LD, VL, HD, HU, built from three
+    filtered strips over the 13-pixel contour [l3 l2 l1 l0 tl t0..t7]."""
+    ctx = torch.cat([l.flip(-1), tl[..., None], t, tr], dim=-1)   # 13
+    s3 = _a3(ctx[..., :-2], ctx[..., 1:-1], ctx[..., 2:])           # 11
+    s2 = _a2(ctx[..., :-1], ctx[..., 1:])                           # 12
+    # The reversed left contour [tl l0 l1 l2 l3 l3] for the horizontal
+    # modes.
+    lr = torch.cat([ctx[..., 4:5], l, l[..., 3:4]], dim=-1)
+    s3h = _a3(lr[..., :-2], lr[..., 1:-1], lr[..., 2:])             # 4
+    s2h = _a2(lr[..., :-1], lr[..., 1:])                            # 5
+    l3 = l[..., 3]
+
+    shape44 = t.shape[:-1] + (4, 4)
+    dc = (t.sum(dim=-1, dtype=torch.int32) + l.sum(dim=-1, dtype=torch.int32)
+          + 4) >> 3
+    p_dc = dc[..., None, None].expand(shape44)
+    p_tm = (l[..., :, None] + t[..., None, :] - tl[..., None, None]).clamp(
+        0, 255)
+    p_ve = s3[..., None, 4:8].expand(shape44)
+    p_he = s3h[..., :, None].expand(shape44)
+    # RD: o[r, c] = e[3 - r + c], e the s3 strip centred l2..t2.
+    p_rd = _rows(s3[..., 3:7], s3[..., 2:6], s3[..., 1:5], s3[..., 0:4])
+    c2 = s2[..., 4:8]
+    d3 = s3[..., 3:7]
+    p_vr = _rows(c2, d3,
+                 torch.cat([s3[..., 2:3], c2[..., 0:3]], dim=-1),
+                 torch.cat([s3[..., 1:2], d3[..., 0:3]], dim=-1))
+    # LD: f = s3 centred t1..t6 plus the a3(t6, t7, t7) tail.
+    f = torch.cat([s3[..., 5:11],
+                   _a3(tr[..., 2], tr[..., 3], tr[..., 3])[..., None]],
+                  dim=-1)
+    p_ld = _rows(f[..., 0:4], f[..., 1:5], f[..., 2:6], f[..., 3:7])
+    g2 = s2[..., 5:9]
+    g3 = s3[..., 5:9]
+    p_vl = _rows(g2, g3,
+                 torch.cat([g2[..., 1:4], s3[..., 9:10]], dim=-1),
+                 torch.cat([g3[..., 1:4], s3[..., 10:11]], dim=-1))
+    hd0 = torch.cat([s2h[..., 0:1], s3[..., 3:6]], dim=-1)
+    hd1 = torch.cat([s2h[..., 1:2], s3h[..., 0:1], hd0[..., 0:2]], dim=-1)
+    hd2 = torch.cat([s2h[..., 2:3], s3h[..., 1:2], hd1[..., 0:2]], dim=-1)
+    hd3 = torch.cat([s2h[..., 3:4], s3h[..., 2:3], hd2[..., 0:2]], dim=-1)
+    p_hd = _rows(hd0, hd1, hd2, hd3)
+    l3b = l3[..., None].expand(l3.shape + (4,))
+    hu0 = torch.stack([s2h[..., 1], s3h[..., 1], s2h[..., 2], s3h[..., 2]],
+                      dim=-1)
+    hu1 = torch.cat([hu0[..., 2:4], s2h[..., 3:4], s3h[..., 3:4]], dim=-1)
+    hu2 = torch.cat([hu1[..., 2:4], l3b[..., 0:2]], dim=-1)
+    p_hu = _rows(hu0, hu1, hu2, l3b)
+    return [p_dc, p_tm, p_ve, p_he, p_rd, p_vr, p_ld, p_vl, p_hd, p_hu]
 
 
 def i4_search(Yb, seg_map, qtab16, lam4, lam_mode4, tlsd4, i16_score,

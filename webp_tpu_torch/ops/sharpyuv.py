@@ -9,14 +9,15 @@ source. The host uses fixed-point gamma tables; the device, like the
 reference's, evaluates the BT.709 transfer curves directly in float32.
 Everything is elementwise work, 2x2 pooling and static slices in
 float32, in the order the reference's compiled CPU program computes it:
-XLA folds constant factors together, sums the 2x2 mean pairwise and
-contracts a product that feeds a sum into one fused multiply-add, and
-the port does the same (_fma). XLA also recomputes the luma difference
-target_y - W(rec) inside several fusions and contracts a different
-product in each; the port computes it once, so on large images a few
-samples in 10^6 differ by 1 from the reference's
-(tests/sharpyuv_fullsize.py counts them). The convergence early exit is
-a per-image `done` flag selecting between states.
+XLA folds constant factors together, sums the 2x2 mean's four values in
+sequence (the reduction loop's order) and contracts a product that feeds
+a sum into one fused multiply-add when the product has a single use in
+its fusion, and the port does the same (_fma). XLA recomputes best_y in
+each fusion that reads it, so the luma difference target_y - W(rec)
+takes the contraction of the fusion it is evaluated in; the port
+computes the two forms where they are read (sharp_yuv420). The
+convergence early exit is a per-image `done` flag selecting between
+states.
 
 The transfer curves' `pow` decides bytes: a result one ulp off flips a
 sample now and then. On the CPU the curves take the C library's powf
@@ -126,10 +127,10 @@ def _w_unscaled(rgb10):
 def _update_chroma(rgb10):
     """Target chroma residuals [B, h/2, w/2, 3] = scaled RGB - its gray,
     the scaled RGB a gamma-aware 2x2 average per channel (the four values
-    summed pairwise, as XLA's reduction does)."""
+    summed in sequence, row by row, as XLA's reduction loop does)."""
     lin = _to_linear10(rgb10)
-    acc = ((lin[:, 0::2, 0::2] + lin[:, 0::2, 1::2])
-           + (lin[:, 1::2, 0::2] + lin[:, 1::2, 1::2])) * 0.25
+    acc = (((lin[:, 0::2, 0::2] + lin[:, 0::2, 1::2]) + lin[:, 1::2, 0::2])
+           + lin[:, 1::2, 1::2]) * 0.25
     s = _from_linear(acc) * MAX_Y
     return s - _gray(s[..., 0], s[..., 1], s[..., 2])[..., None]
 
@@ -179,15 +180,28 @@ def sharp_yuv420(rgb):
     diff_threshold = 3.0 * w * h  # host threshold at the same 10-bit scale
     done = torch.zeros((B,), dtype=torch.bool, device=rgb.device)
     prev_diff = None
+    # target_y - W(rec) * MAX_Y: XLA recomputes best_y in each fusion that
+    # reads it, and a fusion that evaluates the difference once contracts
+    # its first product (form A, fma(Wt, M, -Wr*M)), one that evaluates it
+    # twice or more, with its target product shared, the second (form B,
+    # fma(-Wr, M, Wt*M)). The interpolation at iteration 1 reads best_y1
+    # from fusions of the first kind; every other reader of best_y (the
+    # next best_y, later interpolations, the final conversion) recomputes
+    # two or more differences. So best_y1 exists in both forms.
+    y_rec = best_y      # the best_y the interpolation reads
     for it in range(NUM_ITERATIONS):
-        rec = _interpolate(best_y, best_uv)
-        # target_y - W(rec) * MAX_Y: XLA recomputes target_y here and
-        # contracts its product (the first operand) into the difference.
-        diff_y = _fma(w_target, MAX_Y, -(_w_unscaled(rec) * MAX_Y))
+        rec = _interpolate(y_rec, best_uv)
+        w_rec = _w_unscaled(rec)
+        diff_y = _fma(-w_rec, MAX_Y, w_target * MAX_Y)
         new_y = torch.clamp(best_y + diff_y, 0.0, MAX_Y)
         new_uv = best_uv + (target_uv - _update_chroma(rec))
+        if it == 0:
+            diff_y = _fma(w_target, MAX_Y, -(w_rec * MAX_Y))
+            y_rec = torch.clamp(best_y + diff_y, 0.0, MAX_Y)
         best_y = torch.where(done[:, None, None], best_y, new_y)
         best_uv = torch.where(done[:, None, None, None], best_uv, new_uv)
+        if it > 0:
+            y_rec = best_y
         diff_sum = diff_y.abs().sum(dim=(1, 2), dtype=torch.float64)
         if it > 0:
             done = done | (diff_sum < diff_threshold) | (diff_sum > prev_diff)
