@@ -6,8 +6,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
 
   1. The card's name and power limit (nvidia-smi) and torch's device name.
   2. Builds the four CUDA kernels (nvcc, sm_90a) and the host libraries
-     (entropy coder and YUV importer; the VP8 decoder and upsampler; g++)
-     from the checkout's sources, all compilers at once, and prints each
+     (entropy coder and YUV importer; the VP8 and VP8L decoders and the
+     upsampler; the VP8L encoder's coder and searches; g++) from the
+     checkout's sources, all compilers at once, and prints each
      kernel's registers, shared memory and spills as ptxas reported them.
   3. The main path, counted: webp_tpu_torch.encode_batch on B=16 synthetic
      1536x1024 images (made from --seed), with every kernel's launch count
@@ -71,6 +72,21 @@ Phases, each of which raises on failure (the script then exits nonzero):
      72x40 and 33x17 on every filter branch; encode() with autofilter,
      target_size and target_psnr at full width (card == CPU at 64x48) and
      with backend="host" (host time).
+ 11. Lossless and alpha (lossless()). A 1536x1024 RGBA image (soft
+     alpha edges, transparent areas, a noisy region) through encode() at
+     the defaults on the card: kernels 1-4 once each, the ALPH plane
+     encoded on a host thread beside them (wall seconds, ALPH bytes and
+     seconds); decode_rgba on both backends: the source's alpha, equal
+     RGB. encode(img, lossless=True, exact=True) on the card (its
+     predictor search there) and with backend="host" (the native
+     predictor) on the photo-like RGBA image and on one with a large
+     noise area, whose trees include lone-symbol code-length codes
+     (counted): equal files that decode to the source, wall seconds,
+     the native VP8L decode's ms, no kernel launched. predictor_search on
+     the card against the native predictor at bits 3, 4 and 5 (equal;
+     card ms against host ms); the other ops/lossless.py functions card
+     against CPU; card files against CPU files at 64x48, 72x40 and 33x17
+     (lossless, lossy with alpha, near_lossless=60).
 
 Kernel times ("ms") are the card's own (runs queued behind a sleep, CUDA
 events); each kernel's time per call from an idle card, which also
@@ -80,8 +96,10 @@ recorded before the queued timing), is printed and recorded beside it.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's route, source, the TPU kernel it replaces, launches on the main
 path and in the stream (stream_launches) and, for kernel 3, at methods
-5 and 6 (quality_launches, with its card and plain times there), error,
-times and bound; the last line is {"ok": true, "device": {...}}.
+5 and 6 (quality_launches, with its card and plain times there), its
+launches in phase 11 (lossless_launches: the alpha encode, the lossless
+encodes, the decodes), error, times and bound; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -734,6 +752,208 @@ def decoding(seed, card, imgs):
           f"PSNR {ENC.LAST_STATS.psnr:.3f} dB", flush=True)
 
 
+def alpha_plane(rng, h, w):
+    """An alpha plane with soft edges (a radial ramp), fully transparent
+    areas (a band and a disc) and a noisy region."""
+    y = np.arange(h, dtype=np.float32)[:, None] / h
+    x = np.arange(w, dtype=np.float32)[None, :] / w
+    r = np.sqrt((x - 0.55) ** 2 + (y - 0.5) ** 2)
+    a = np.clip((0.45 - r) * 900.0, 0, 255)
+    a[: h // 8] = 0
+    a[(x - 0.2) ** 2 + (y - 0.75) ** 2 < 0.01] = 0
+    a[h // 2: h // 2 + h // 6, w // 10: w // 3] = rng.integers(
+        0, 256, (h // 6, w // 3 - w // 10))
+    return (a + 0.5).astype(np.uint8)
+
+
+def lone_symbol_trees(vp8l: bytes) -> int:
+    """How many Huffman trees of a VP8L bitstream's main image have a
+    code-length code with a single used symbol (read with 0 bits per
+    token): its headers, transforms and trees only, by the numpy
+    decoder."""
+    from webp_tpu_torch.lossless import decode as LD
+
+    class Probe(LD.VP8LDecoder):
+        n = 0
+
+        def _read_code_lengths(self, cl_table, num_symbols):
+            Probe.n += cl_table.single_symbol >= 0
+            return super()._read_code_lengths(cl_table, num_symbols)
+
+    d = Probe(vp8l)
+    d._decode_image_stream_header(d.width, d.height, is_level0=True)
+    return Probe.n
+
+
+def lossless(seed, card, w=W, h=H, dev=CARD):
+    """Phase 11: lossless and alpha at full width. encode(rgba) at the
+    defaults on the card (kernels 1-4 once each, the ALPH plane on a host
+    thread beside them) and its decode on both backends; encode(img,
+    lossless=True, exact=True) on the card (the predictor search there)
+    and with backend="host" (the native predictor) on a photo-like image
+    and on one whose large noise area makes trees with a lone-symbol
+    code-length code: equal files that decode to the source, no kernel
+    launched; predictor_search on the card against the native predictor
+    at bits 3, 4 and 5, the other ops/lossless.py functions card against
+    CPU; card files against CPU files at 64x48, 72x40 and 33x17 (lossless,
+    lossy with alpha, near_lossless=60). Returns the kernels' launches in
+    the phase: {"alpha_encode": {...}, "lossless_encode": {...},
+    "decode": {...}}."""
+    import webp_tpu_torch
+    from webp_tpu_torch import encoder as ENC
+    from webp_tpu_torch.container.parser import Parser
+    from webp_tpu_torch.lossless import decode as LD
+    from webp_tpu_torch.lossless import encode as LE
+    from webp_tpu_torch.lossy import alpha as AD
+    from webp_tpu_torch.lossy import alpha_enc as AE
+    from webp_tpu_torch.native import api as NA
+    from webp_tpu_torch.ops import cuda as KC
+    from webp_tpu_torch.ops import lossless as OL
+
+    rng = np.random.default_rng(seed + 11)
+    img = synth_images(rng, 1, h, w)[0]
+    alpha = alpha_plane(rng, h, w)
+    rgba = np.dstack([img, alpha])
+    out = {}
+
+    # encode(rgba) at the defaults: the lossy frame on the card, ALPH on
+    # a host thread.
+    KC.reset_launches()
+    data, first_s = once(lambda: webp_tpu_torch.encode(rgba, device=dev))
+    out["alpha_encode"] = dict(KC.LAUNCHES)
+    alph_bytes = ENC.LAST_STATS.alpha_size
+    check_per_batch(out["alpha_encode"], 1, f"encode(rgba) {w}x{h}")
+    e2e = wall_s(lambda: webp_tpu_torch.encode(rgba, device=dev), 3)
+    e2e_rgb = wall_s(lambda: webp_tpu_torch.encode(img, device=dev), 3)
+    _, alph_s = once(lambda: AE.encode_alpha(alpha))
+    KC.reset_launches()
+    on_card, dec_s = once(lambda: webp_tpu_torch.decode_rgba(data,
+                                                             device=dev))
+    on_host = webp_tpu_torch.decode_rgba(data, backend="host")
+    out["decode"] = dict(KC.LAUNCHES)
+    if not np.array_equal(on_card[..., 3], alpha):
+        raise AssertionError("encode(rgba): the decoded alpha differs from "
+                             "the source's")
+    if not np.array_equal(on_card, on_host):
+        raise AssertionError("encode(rgba): device and host decodes differ")
+    dec_card = wall_s(lambda: webp_tpu_torch.decode_rgba(data, device=dev), 3)
+    dec_host = wall_s(lambda: webp_tpu_torch.decode_rgba(
+        data, backend="host"), 3)
+    alph = Parser(data).frames()[0].alpha
+    adec_s = wall_s(lambda: AD.decode_alpha(alph, w, h), 3)
+    print(f"alpha: encode(rgba) {w}x{h} at the defaults on the card: first "
+          f"call {first_s:.3f} s, then {e2e:.4f} s wall (the same image "
+          f"without alpha {e2e_rgb:.4f} s); {len(data)} bytes, ALPH payload "
+          f"{alph_bytes} bytes, the ALPH encode alone {alph_s:.4f} s (host "
+          f"thread); launches {out['alpha_encode']}; decode_rgba on the "
+          f"card {dec_card * 1e3:.1f} ms (first call {dec_s * 1e3:.1f} ms), "
+          f"on the host {dec_host * 1e3:.1f} ms, of which the ALPH decode "
+          f"(numpy VP8L decoder and unfilter, host) {adec_s * 1e3:.1f} ms: "
+          f"alpha == source, RGB device == host; {card}", flush=True)
+
+    # Lossless on the card and with backend="host".
+    noisy = img.copy()
+    noisy[h // 8: h // 8 + h // 2, w // 8: w // 8 + w // 2] = rng.integers(
+        0, 256, (h // 2, w // 2, 3), np.uint8)
+    out["lossless_encode"] = {k: 0 for k in KC.LAUNCHES}
+    for label, im in (("photo-like, with alpha", rgba),
+                      ("large noise area", noisy)):
+        KC.reset_launches()
+        f_card, card_s = once(lambda: webp_tpu_torch.encode(
+            im, lossless=True, exact=True, device=dev))
+        f_host, host_s = once(lambda: webp_tpu_torch.encode(
+            im, lossless=True, exact=True, backend="host"))
+        for k, v in KC.LAUNCHES.items():
+            out["lossless_encode"][k] += v
+        if f_card != f_host:
+            raise AssertionError(f"lossless {label}: card and host files "
+                                 "differ")
+        KC.reset_launches()
+        px = webp_tpu_torch.decode_rgba(f_card, device=dev)
+        for k, v in KC.LAUNCHES.items():
+            out["decode"][k] += v
+        src = im if im.shape[2] == 4 else np.dstack(
+            [im, np.full((h, w), 255, np.uint8)])
+        if not np.array_equal(px, src):
+            raise AssertionError(f"lossless {label}: decode differs from "
+                                 "the source")
+        bs = Parser(f_card).frames()[0].bitstream
+        dec_ms = wall_s(lambda: LD.decode_vp8l(bs), 3) * 1e3
+        lone = lone_symbol_trees(bs)
+        print(f"lossless {label}: {w}x{h} encode(lossless=True, exact=True)"
+              f" on the card {card_s:.3f} s wall, backend=\"host\" "
+              f"{host_s:.3f} s; files equal, {len(f_card)} bytes; decode == "
+              f"source; the native VP8L decode {dec_ms:.1f} ms; "
+              f"{lone} tree(s) with a lone-symbol code-length code; {card}",
+              flush=True)
+        if label.startswith("large") and not lone:
+            raise AssertionError("the noise image made no lone-symbol tree")
+    if any(out["lossless_encode"].values()) or any(out["decode"].values()):
+        raise AssertionError(f"kernels launched outside the lossy encode: "
+                             f"{out}")
+
+    # predictor_search on the card against the native predictor.
+    argb = LE.subtract_green(LE.rgba_to_argb(rgba))
+    t = torch.from_numpy(argb.view(np.int32)).to(dev)
+    for bits in (3, 4, 5):
+        res, modes = OL.predictor_search(t, bits)
+        n_res, n_modes = NA.vp8l_predictor_transform(argb, bits)
+        if not (np.array_equal(res.cpu().numpy().astype(np.uint32), n_res)
+                and np.array_equal(modes.cpu().numpy(), n_modes)):
+            raise AssertionError(f"predictor_search at bits {bits} differs "
+                                 "from the native predictor")
+        card_ms = time_ms(lambda: OL.predictor_search(t, bits), 5)
+        call_ms = time_ms(lambda: OL.predictor_search(t, bits), 5,
+                          queued=False)
+        host_ms = wall_s(lambda: NA.vp8l_predictor_transform(argb, bits),
+                         3) * 1e3
+        print(f"predictor_search bits {bits}: {w}x{h} equal to the native "
+              f"predictor (modes and residuals); {card_ms:.3f} ms on the "
+              f"card (runs queued), {call_ms:.3f} ms per call from an idle "
+              f"card; native predictor {host_ms:.3f} ms (host); {card}",
+              flush=True)
+    tiles = rng.integers(0, 1 << 32, ((h + 7) >> 3) * ((w + 7) >> 3),
+                         dtype=np.uint64).astype(np.uint32)
+    pal = rng.integers(0, 1 << 32, 16, dtype=np.uint64).astype(np.uint32)
+    packed = (rng.integers(0, 256, (h, w)).astype(np.uint32) << 8) \
+        | np.uint32(0xFF000000)
+
+    def as_t(a, d):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(d)
+
+    for name, fn in (
+            ("add_green_inverse", lambda d: OL.add_green_inverse(as_t(argb, d))),
+            ("subtract_green", lambda d: OL.subtract_green(as_t(argb, d))),
+            ("color_space_inverse", lambda d: OL.color_space_inverse(
+                as_t(argb, d), 3, as_t(tiles, d))),
+            ("color_space_forward", lambda d: OL.color_space_forward(
+                as_t(argb, d), 3, as_t(tiles, d))),
+            ("color_index_inverse", lambda d: OL.color_index_inverse(
+                as_t(packed, d), 1, as_t(pal, d), w * 2))):
+        if not torch.equal(fn(dev).cpu(), fn(torch.device("cpu"))):
+            raise AssertionError(f"{name}: card and CPU differ")
+    print("ops/lossless.py: add_green_inverse, subtract_green, "
+          "color_space_inverse/forward and color_index_inverse card == CPU "
+          f"at {w}x{h}", flush=True)
+
+    # Card files against CPU files, small images.
+    for (sw, sh) in ((64, 48), (72, 40), (33, 17)):
+        small = np.dstack([synth_images(rng, 1, sh, sw)[0],
+                           alpha_plane(rng, sh, sw)])
+        for label, opts in (("lossless", dict(lossless=True)),
+                            ("lossy with alpha", {}),
+                            ("near_lossless=60", dict(lossless=True,
+                                                      near_lossless=60))):
+            if webp_tpu_torch.encode(small, device=dev, **opts) != \
+                    webp_tpu_torch.encode(small, device="cpu", **opts):
+                raise AssertionError(f"{sw}x{sh} {label}: card and CPU "
+                                     "files differ")
+    print("lossless parity: card == CPU files, byte for byte, at 64x48, "
+          "72x40 and 33x17: lossless, lossy with alpha, near_lossless=60",
+          flush=True)
+    return out
+
+
 class Recorder:
     """Wraps a kernel wrapper so that the main path's call records its
     (card) inputs; the kernel and its plain version are then held against
@@ -784,7 +1004,7 @@ def main(argv=None):
 
     # 2. Build every library of the path, all compilers at once.
     t0 = time.perf_counter()
-    spent = _build.build(["webp_enc", "webp_dec"]
+    spent = _build.build(["webp_enc", "webp_dec", "vp8l_enc"]
                          + list(_build.KERNEL_LIBS))
     print(f"build: {time.perf_counter() - t0:.1f} s wall; per library "
           + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()), flush=True)
@@ -993,6 +1213,12 @@ def main(argv=None):
     k3 = next(k for k in kernels if k["name"] == "i4_search")
     k3["quality_launches"] = {m: v["i4_search"] for m, v in quality.items()}
     k3["quality_ms"], k3["quality_plain_ms"] = rec3["ms"], rec3["plain_ms"]
+
+    # 11. Lossless and alpha.
+    phase11 = lossless(args.seed, card)
+    for k in kernels:
+        k["lossless_launches"] = {part: v[k["name"]]
+                                  for part, v in phase11.items()}
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """The single-image entry end to end on the CPU: webp_tpu_torch.encode(img,
 device="cpu", **options) (every kernel's plain version) writes the file
 webp_tpu.encode(img, backend="device", **options) writes, byte for byte,
-for the options this package ports (backend="host" writes the file of
-the reference's default backend), and raises NotImplementedError for
-those it does not port yet. Methods 5 and 6 and sharp YUV are held here
-by the device program's settings (as the reference's encode() asks for
-them) and byte for byte in test_torch_method5.py, test_torch_method6.py
-and test_torch_sharpyuv.py.
+for the lossy options (backend="host" writes the file of the
+reference's default backend). Methods 5 and 6 and sharp YUV are held
+here by the device program's settings (as the reference's encode() asks
+for them) and byte for byte in test_torch_method5.py,
+test_torch_method6.py and test_torch_sharpyuv.py; lossless in
+test_torch_lossless.py, alpha in test_torch_alpha.py and
+test_torch_ratecontrol.py.
 
 Each reference configuration (geometry, quality, segments, SNS, I4)
 compiles its own JAX program on the CPU, ~5-25 s each, so the cases use
@@ -150,18 +151,6 @@ def test_single_configuration_runs_no_alpha_kernel_and_no_i4_search(
     webp_tpu_torch.encode(img, device="cpu", method=2)
     assert not called and set(seen) == {"is_i4", "seg_map"}
     assert not any(bool(t.any()) for t in seen.values())
-
-
-@pytest.mark.parametrize("opts", [dict(lossless=True), "alpha"], ids=str)
-def test_options_outside_the_slice_raise_not_implemented(opts):
-    """Each option whose slice is not ported raises before any work and
-    names where it is planned; so does an image with alpha < 255."""
-    img = _images(1, 16, 32, 13)[0]
-    if opts == "alpha":
-        img, opts = _opaque_rgba(img), {}
-        img[0, 0, 3] = 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        webp_tpu_torch.encode(img, device="cpu", **opts)
 
 
 @pytest.mark.parametrize("opts", [

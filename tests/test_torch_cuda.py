@@ -576,3 +576,65 @@ def test_kernel_build_without_nvcc_raises_and_can_retry():
     for _ in range(2):
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.build(["p1_alpha"])
+
+
+def _rgba(h, w, seed):
+    """_images' content under an alpha plane with a soft edge, a fully
+    transparent band and a noisy region."""
+    rng = np.random.default_rng(seed)
+    a = np.clip((np.arange(w)[None, :] - w // 3) * 9, 0, 255) + \
+        np.zeros((h, 1), np.int64)
+    a[: h // 5] = 0
+    a[h // 2:, w // 2:] = rng.integers(0, 256, (h - h // 2, w - w // 2))
+    return np.dstack([_images(1, h, w, seed)[0], a.astype(np.uint8)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(33, 17), (72, 40), (640, 480)])
+def test_predictor_search_on_the_card_equals_native_predictor(geom):
+    """ops/lossless.py predictor_search on the card gives the native C++
+    predictor's residuals and modes at every tile size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.lossless import encode as le
+    from webp_tpu_torch.native import api
+    from webp_tpu_torch.ops import lossless as ol
+
+    w, h = geom
+    argb = le.subtract_green(le.rgba_to_argb(_rgba(h, w, w)))
+    t = torch.from_numpy(argb.view(np.int32)).cuda()
+    for bits in (2, 3, 4, 5):
+        res, modes = ol.predictor_search(t, bits)
+        n_res, n_modes = api.vp8l_predictor_transform(argb, bits)
+        assert np.array_equal(res.cpu().numpy().astype(np.uint32), n_res)
+        assert np.array_equal(modes.cpu().numpy(), n_modes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(lossless=True),
+                                  dict(lossless=True, near_lossless=60),
+                                  dict(lossless=True, method=6, quality=90),
+                                  {}, dict(alpha_filtering=2, method=6)],
+                         ids=str)
+@pytest.mark.parametrize("geom", [(72, 40), (33, 17)])
+def test_lossless_and_alpha_on_the_card_equal_the_cpu(geom, opts):
+    """encode(rgba) on the card (the predictor search there when
+    lossless, kernels 1-4 beside the host ALPH encode when lossy) writes
+    the CPU run's file, and both decode backends give the same pixels,
+    the source's alpha where alpha_quality is 100."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import cuda
+
+    w, h = geom
+    img = _rgba(h, w, w + h)
+    cuda.reset_launches()
+    on_card = webp_tpu_torch.encode(img, **opts)
+    want = 0 if opts.get("lossless") else 1
+    assert set(cuda.LAUNCHES.values()) <= {0, want}
+    assert on_card == webp_tpu_torch.encode(img, device="cpu", **opts)
+    px = webp_tpu_torch.decode_rgba(on_card)
+    assert np.array_equal(px, webp_tpu_torch.decode_rgba(on_card,
+                                                         backend="host"))
+    if opts.get("near_lossless", 100) == 100:
+        assert np.array_equal(px[..., 3], img[..., 3])

@@ -4,9 +4,10 @@ chunks and frames, the native decoder and upsampler, the numpy
 VP8Decoder, and decode/decode_rgba on both backends (backend="device"
 with device="cpu", the device decode's plain versions), on files made by
 Pillow's libwebp and by the port's own encoder at 64x48, 120x90 and
-33x17; truncated and garbage input raises WebPError; VP8L frames and
-ALPH chunks raise NotImplementedError (the lossless decoder is not
-ported). Every comparison is exact. No reference JAX program is
+33x17; truncated and garbage input raises WebPError; an unknown backend
+raises ValueError (VP8L frames and ALPH chunks are held in
+test_torch_lossless.py and test_torch_alpha.py). Every comparison is
+exact. No reference JAX program is
 compiled: the reference's decode runs its native host decoder."""
 
 import io
@@ -166,15 +167,7 @@ def test_garbage_input_raises_webp_error():
                 webp_tpu_torch.decode(data, **kw)
 
 
-def test_lossless_and_alpha_raise_not_implemented():
-    img = _images(1, 17, 33, 2)[0]
-    rgba = np.concatenate([img, np.full(img.shape[:2] + (1,), 128,
-                                        np.uint8)], axis=-1)
-    for data in (_pillow(img, lossless=True), _pillow(rgba, quality=50)):
-        for kw in (dict(backend="host"),
-                   dict(backend="device", device="cpu")):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                webp_tpu_torch.decode(data, **kw)
+def test_unknown_decode_backend_raises():
     with pytest.raises(ValueError, match="backend"):
         webp_tpu_torch.decode(FILES["port_normal_64x48"], backend="tpu")
 

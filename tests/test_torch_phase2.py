@@ -1,6 +1,8 @@
 """The port's phase-2 wavefront (the Python step loop that stands in for
-the reference's lax.scan), the nibble pack and escape list, and the whole
-device program's output blob, against the JAX package on the CPU."""
+the reference's lax.scan) and the nibble pack and escape list, against
+the JAX package on the CPU. The whole device program's output blob is
+held in test_torch_encode.py, beside encode_batch, whose reference
+program it shares."""
 
 import numpy as np
 import pytest
@@ -174,40 +176,6 @@ def test_pack_levels_equals_reference_and_unpacks(esc_rate, esc_cap):
             continue            # overflow: the host re-encodes the image
         back = FP.unpack_levels(*(x[b].numpy() for x in got), n_mb)
         np.testing.assert_array_equal(back, lv[b])
-
-
-@pytest.mark.parametrize("geom", [(64, 48), (80, 48)])
-def test_rgbp_blob_equals_reference_byte_for_byte(geom):
-    """The whole device program at the main path's configuration: the
-    output blob's chunks byte for byte, and every field unpacked."""
-    W, H = geom
-    rng = np.random.default_rng(W)
-    y, x = np.mgrid[0:H, 0:W]
-    rgbp = np.stack([np.stack([(x * 4) % 256, (y * 5) % 256,
-                               (x * y) % 256])] * 2).astype(np.int64)
-    rgbp[1] = rgbp[1] // 2 + rng.integers(0, 128, rgbp[1].shape)
-    rgbp = rgbp.astype(np.uint8)
-    fn = FP.fast_encode_fn(W // 16, H // 16, 75, 4, 50, True)
-    fn_ref = FP_ref.fast_encode_fn(W // 16, H // 16, 75, 4, 50, True,
-                                   rd_drop=1024.0)
-    got = fn.rgbp_blob(torch.as_tensor(rgbp))
-    ref = fn_ref.rgbp_blob(jnp.asarray(rgbp))
-    assert len(got) == len(ref) == FP.BLOB_CHUNKS + 1
-    for g, r in zip(got, ref):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
-    spec_ref = {k: (np.dtype(v[0]), tuple(v[1]), v[2], v[3])
-                for k, v in fn_ref.blob_spec.items()}
-    assert {k: (np.dtype(v[0]), tuple(v[1]), v[2], v[3])
-            for k, v in fn.blob_spec.items()} == spec_ref
-    assert fn.esc_cap == fn_ref.esc_cap
-    f = FP.unpack_output_blob([c.numpy() for c in got], fn.blob_spec)
-    f_ref = FP_ref.unpack_output_blob([np.asarray(c) for c in ref],
-                                      fn_ref.blob_spec)
-    assert list(f) == list(FP.BLOB_ORDER) == list(f_ref)
-    for k in f:
-        assert f[k].dtype == f_ref[k].dtype, k
-        np.testing.assert_array_equal(f[k], f_ref[k], err_msg=k)
-    assert f["is_i4"].any() and len(np.unique(f["seg_map"])) > 1
 
 
 def test_fast_encode_fn_other_configurations_raise():

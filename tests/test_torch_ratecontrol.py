@@ -6,8 +6,10 @@ and target_psnr on the host backend; and the default backends: the
 port's encode(img) is webp_tpu.encode(img, backend="device") and the
 port's encode(img, backend="host") is webp_tpu.encode(img) (whose
 default backend is "host"); "auto" runs the device program, as the
-reference's does whenever a device exists. LAST_STATS is compared field
-by field.
+reference's does whenever a device exists; with alpha < 255 the device
+backend's file (the cleanup, the ALPH chunk encoded beside the frame,
+VP8X with metadata) is the reference's device backend's. LAST_STATS is
+compared field by field.
 
 The reference's device program compiles once per geometry and quality
 (~30 s cold here), so the device cases share one geometry at the
@@ -29,6 +31,28 @@ from webp_tpu import encoder as ENC_ref
 from webp_tpu_torch import encoder as ENC
 
 IMG = _images(1, 48, 64, 21)[0]
+
+
+def _rgba():
+    """IMG under an alpha plane with a soft edge, a transparent band and
+    a noisy region."""
+    y, x = np.mgrid[0:48, 0:64]
+    a = np.clip((x - 20) * 9, 0, 255)
+    a[:10] = 0
+    a[24:36, 32:] = np.random.default_rng(3).integers(0, 256, (12, 32))
+    return np.dstack([IMG, a.astype(np.uint8)])
+
+
+RGBA = _rgba()
+META = dict(iccp=b"icc-bytes", exif=b"Exif\0\0II", xmp=b"<x/>")
+# name -> (image, options) of the device cases: one reference program
+# (the defaults at 64x48), alpha included (the ALPH plane is host code).
+DEVICE_CASES = {
+    "default": (IMG, {}), "autofilter": (IMG, dict(autofilter=True)),
+    "auto": (IMG, dict(backend="auto")), "alpha": (RGBA, {}),
+    "alpha_meta_autofilter": (RGBA, dict(META, autofilter=True,
+                                         alpha_filtering=2)),
+}
 
 
 def _stats():
@@ -74,30 +98,37 @@ def reference_device():
     """The reference's device files (one compiled program: the default
     options at 64x48), with their LAST_STATS."""
     out = {}
-    for name, opts in (("default", {}), ("autofilter", dict(autofilter=True)),
-                       ("auto", dict(backend="auto"))):
+    for name, (img, opts) in DEVICE_CASES.items():
         opts = dict(dict(backend="device"), **opts)
-        out[name] = (webp_tpu.encode(IMG, **opts), _ref_stats())
+        out[name] = (webp_tpu.encode(img, **opts), _ref_stats())
     return out
 
 
 @pytest.mark.parametrize("name,opts", [
-    ("default", {}), ("autofilter", dict(autofilter=True)),
-    ("auto", dict(backend="auto"))], ids=str)
+    (k, opts) for k, (_, opts) in DEVICE_CASES.items()], ids=str)
 def test_device_backends_equal_reference(reference_device, name, opts):
     """The port's default backend is the device program: encode(img)
     (here on the CPU's plain versions) equals webp_tpu.encode(img,
-    backend="device"); so does "auto"; and autofilter on the device path
+    backend="device"); so does "auto"; autofilter on the device path
     (probe decode with the filter off, the host's strength search, PSNR
-    from the probe's reconstruction) equals the reference's."""
+    from the probe's reconstruction) equals the reference's; and so does
+    an image with alpha (its ALPH chunk, alpha_size in LAST_STATS), which
+    decodes to the source's alpha on both backends."""
     assert ENC.EncoderOptions().backend == "device"
-    got = webp_tpu_torch.encode(IMG, device="cpu", **opts)
+    img = DEVICE_CASES[name][0]
+    got = webp_tpu_torch.encode(img, device="cpu", **opts)
     want, want_stats = reference_device[name]
     assert got == want
     assert _stats() == want_stats
     if name == "autofilter":
         assert want_stats[0] > 20.0
         assert got != reference_device["default"][0]
+    if img is RGBA:
+        assert want_stats[6] > 0 and got[12:16] == b"VP8X"
+        ref_px = webp_tpu.decode_rgba(got)
+        for kw in (dict(backend="host"), dict(device="cpu")):
+            px = webp_tpu_torch.decode_rgba(got, **kw)
+            assert (px == ref_px).all() and (px[..., 3] == RGBA[..., 3]).all()
 
 
 @pytest.mark.parametrize("opts", [

@@ -1,7 +1,7 @@
 """The PyTorch port's encoder parameters against the JAX reference: the
 quantizer, lambda and rate tables, the SNS quant curve, the segment plan
-arithmetic, and the package's isolation from JAX and from the reference
-package's build products."""
+arithmetic, and the package's isolation from JAX, Pillow, the reference
+package, its environment switches and its build products."""
 
 import os
 import re
@@ -157,8 +157,16 @@ def _py_files(top):
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|webp_tpu)\b(?!_torch)|"
-    r"from\s+(jax|webp_tpu)\b(?!_torch)[\w.]*\s+import)", re.M)
+    r"^\s*(import\s+(jax|webp_tpu|PIL)\b(?!_torch)|"
+    r"from\s+(jax|webp_tpu|PIL)\b(?!_torch)[\w.]*\s+import)", re.M)
+
+
+def _native_sources():
+    out = []
+    for sub in ("native/src", "csrc"):
+        d = os.path.join(PKG, sub)
+        out += [os.path.join(d, f) for f in sorted(os.listdir(d))]
+    return out
 
 
 def test_port_sources_import_neither_jax_nor_the_reference():
@@ -176,7 +184,8 @@ def test_forbidden_import_pattern_catches_offenders():
     must, and none of the port's own."""
     bad = ["import jax", "import jax.numpy as jnp", "from jax import lax",
            "import webp_tpu", "from webp_tpu.ops import fastpath",
-           "  from webp_tpu import encode"]
+           "  from webp_tpu import encode", "import PIL",
+           "from PIL import Image", "    from PIL.Image import open"]
     good = ["import webp_tpu_torch", "from webp_tpu_torch.ops import cuda",
             "import jaxlib_free_module", "# import jax"]
     assert all(_FORBIDDEN.search(s) for s in bad)
@@ -189,13 +198,26 @@ def test_port_reads_no_reference_env_knobs():
     switches, and no environment at all from Python."""
     knobs = ("WEBPTPU_RD_DROP", "WEBPTPU_DQUV_AC", "WEBPTPU_NO_PALLAS",
              "WEBPTPU_NO_P1K", "WEBPTPU_P2K", "WEBPTPU_NO_PLANAR",
-             "WEBPTPU_PY_LOOP")
+             "WEBPTPU_PY_LOOP", "WEBPTPU_VP8L_DEVICE")
     for path in _port_sources():
         with open(path) as f:
             text = f.read()
         for k in knobs:
             assert k not in text, (path, k)
         assert "os.environ" not in text and "getenv" not in text, path
+
+
+def test_native_and_cuda_sources_read_no_environment():
+    """The port's C++ and CUDA sources read no environment variable (the
+    reference's copies read WEBPTPU_LZ_ITER, WEBPTPU_NO_TRACE,
+    WEBPTPU_MB_PROF and others; its WEBPTPU_*_SIMD macros are compile-time
+    switches, not names of variables)."""
+    srcs = _native_sources()
+    assert any(p.endswith("vp8l_enc.cc") for p in srcs)
+    for path in srcs:
+        with open(path) as f:
+            text = f.read()
+        assert "getenv" not in text and '"WEBPTPU_' not in text, path
 
 
 def test_package_imports_without_jax_triton_or_nvcc():
@@ -241,6 +263,14 @@ def test_native_coder_is_the_ports_own_build():
     for name in ("vp8_emit_tokens", "vp8_record_stats", "vp8_encode_mbs",
                  "bw_new"):
         assert hasattr(lib, name)
+    for lib, name, syms in ((api.get_vp8l(), "vp8l_enc",
+                             ("vp8l_encode_entropy_image",
+                              "vp8l_predictor_transform",
+                              "vp8l_cross_color")),
+                            (api.get_dec(), "webp_dec", ("vp8l_decode",))):
+        path = os.path.realpath(lib._name)
+        assert path == os.path.realpath(_build.lib_path(name))
+        assert all(hasattr(lib, s) for s in syms)
     import inspect
 
     src = inspect.getsource(E)

@@ -1,5 +1,6 @@
-"""webp_tpu_torch — the WebP codec's lossy encode and decode in PyTorch,
-with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""webp_tpu_torch — the WebP codec (lossy and lossless encode and decode,
+alpha) in PyTorch, with hand-written CUDA kernels for the NVIDIA H100
+(sm_90a).
 
 A port of the JAX package webp_tpu, which stays the reference: on the
 same inputs this package writes byte-identical WebP files and decodes
@@ -21,7 +22,8 @@ default is "host":
     encode(img, backend="host") equals webp_tpu.encode(img);
   * decode(data) runs the device decode (its reconstruction, loop filter
     and upsampling on the card), decode(data, backend="host") the native
-    decoder; both give webp_tpu.decode(data)'s pixels.
+    decoder; both give webp_tpu.decode(data)'s pixels. VP8L frames and
+    ALPH planes decode on the host on every backend.
 
 LAST_STATS holds the last encode()'s EncStats.
 """
@@ -72,36 +74,43 @@ def decode_rgba(data: bytes, backend: str = "device",
                 device=None) -> np.ndarray:
     """Decodes a WebP file to an RGBA uint8 array [h, w, 4].
 
-    backend="device": the host parses the tokens (native vp8_parse), the
-    reconstruction, loop filter and upsampling run on `device` (None: the
-    card; "cpu": their plain versions). backend="host": the native
-    decoder. Both give the same pixels. A VP8L frame or an ALPH chunk
-    raises NotImplementedError (the lossless decoder is not ported)."""
-    from .lossy.decode import LOSSLESS_ITEM
+    A VP8 frame, backend="device": the host parses the tokens (native
+    vp8_parse), the reconstruction, loop filter and upsampling run on
+    `device` (None: the card; "cpu": their plain versions).
+    backend="host": the native decoder. Both give the same pixels. An
+    ALPH plane decodes on the host (lossy/alpha.py) with either backend.
 
+    A VP8L frame decodes in the native VP8L decoder on every backend:
+    neither this package nor the reference has a device VP8L decode."""
+    if backend not in ("device", "host"):
+        raise ValueError(f"webp_tpu_torch: unknown decode backend "
+                         f"{backend!r}")
     frames = Parser(data).frames()
     if not frames:
         raise WebPError("webp: no image frame")
     fr = frames[0]
     if fr.is_lossless:
-        raise NotImplementedError(f"webp_tpu_torch: VP8L frame: "
-                                  f"{LOSSLESS_ITEM}")
-    if fr.has_alpha:
-        raise NotImplementedError(f"webp_tpu_torch: ALPH chunk: "
-                                  f"{LOSSLESS_ITEM}")
-    if backend == "device":
-        from .lossy.device_decode import decode_vp8_rgb_device
+        from .lossless.decode import argb_to_rgba, decode_vp8l
 
-        rgb = decode_vp8_rgb_device(fr.bitstream, device=device)
-        rgba = np.empty(rgb.shape[:2] + (4,), dtype=np.uint8)
-        rgba[..., :3] = rgb
-        rgba[..., 3] = 255
-        return rgba
+        return argb_to_rgba(decode_vp8l(fr.bitstream)[0])
     if backend == "host":
         from .lossy.decode import decode_vp8_rgba
 
-        return decode_vp8_rgba(fr.bitstream)
-    raise ValueError(f"webp_tpu_torch: unknown decode backend {backend!r}")
+        return decode_vp8_rgba(fr.bitstream,
+                               fr.alpha if fr.has_alpha else None)
+    from .lossy.device_decode import decode_vp8_rgb_device
+
+    rgb = decode_vp8_rgb_device(fr.bitstream, device=device)
+    h, w = rgb.shape[:2]
+    rgba = np.empty((h, w, 4), dtype=np.uint8)
+    rgba[..., :3] = rgb
+    if fr.has_alpha and fr.alpha:
+        from .lossy.alpha import decode_alpha
+
+        rgba[..., 3] = decode_alpha(fr.alpha, w, h)
+    else:
+        rgba[..., 3] = 255
+    return rgba
 
 
 def decode(data: bytes, backend: str = "device", device=None) -> np.ndarray:

@@ -3,9 +3,11 @@
 Two kinds of library, both with a plain C interface loaded by ctypes:
 
   * the host entropy coder, YUV importer and the C library's powf over
-    an array (native/src, g++), used on every encode; and the host VP8
-    decoder with its token parse and fancy upsampler (native/src, g++),
-    used on every decode;
+    an array (native/src, g++), used on every lossy encode; the host VP8
+    decoder with its token parse and fancy upsampler and the VP8L decoder
+    (native/src, g++), used on every decode; and the VP8L encoder's
+    entropy coder, predictor and cross-color searches (native/src, g++),
+    used on every lossless encode and ALPH plane;
   * the Hopper kernels (csrc/*.cu, nvcc for sm_90a), used when a kernel
     wrapper receives CUDA tensors.
 
@@ -50,8 +52,11 @@ LIBS = {
                          "native/src/powf_array.cc"],
                  ["native/src/bitio.h"]),
     "webp_dec": ("g++", ["native/src/vp8_dec.cc",
-                         "native/src/upsample.cc"],
+                         "native/src/upsample.cc",
+                         "native/src/vp8l_dec.cc"],
                  ["native/src/bitio.h"]),
+    "vp8l_enc": ("g++", ["native/src/vp8l_enc.cc",
+                         "native/src/vp8l_predictor.cc"], []),
     "p1_alpha": ("nvcc", ["csrc/p1_alpha.cu"], ["csrc/common.cuh"]),
     "p1_mode": ("nvcc", ["csrc/p1_mode.cu"], ["csrc/common.cuh"]),
     "i4_search": ("nvcc", ["csrc/i4_search.cu"], ["csrc/common.cuh"]),

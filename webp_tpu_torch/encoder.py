@@ -5,10 +5,11 @@ Counterpart of webp_tpu/encoder.py:
     encode(img, device=None, **options) -> bytes
 
 writes the file webp_tpu.encode(img, **options) writes, byte for byte,
-for every option this package ports (EncoderOptions, presets, segments,
-SNS, filter and partition options, autofilter, target size and PSNR,
-preprocessing and dithering, methods 0-6, sharp YUV, ICC/EXIF/XMP
-metadata through VP8X), with one difference of default: the port's
+for every option (EncoderOptions, presets, segments, SNS, filter and
+partition options, autofilter, target size and PSNR, preprocessing and
+dithering, methods 0-6, sharp YUV, lossless with near-lossless and
+exact, alpha through an ALPH chunk, ICC/EXIF/XMP metadata through VP8X),
+with one difference of default: the port's
 backend is "device" (its entry points run on the card unless the caller
 asks for the CPU), the reference's "host". So encode(img) equals
 webp_tpu.encode(img, backend="device") and encode(img, backend="host")
@@ -19,8 +20,18 @@ program whenever a device exists) runs the device program on `device`:
 the card for None, the kernels' plain versions for "cpu"; with no card,
 device=None raises. backend="host" runs the exact host encoder
 (lossy/encode.py VP8Encoder with its native MB loop) on host planes.
-Lossless and alpha < 255 raise NotImplementedError naming the ROADMAP
-item that brings them.
+
+lossless=True writes a VP8L frame (lossless/encode.py): the per-tile
+predictor search runs on `device` with the device backends and in the
+native C++ predictor with backend="host" (the same bytes); the rest of
+the lossless encoder is host code, as in the reference. One difference
+from the reference's bytes: where a Huffman tree's code-length code has
+a single used symbol, the port writes 0 bits per run-length token, as
+every decoder reads it; the reference writes 1 bit, and its file does
+not decode (lossless/huffman_enc.py). An image with alpha < 255 gets an
+ALPH chunk beside its VP8 frame, encoded on a host thread while the
+lossy frame is encoded (lossy/alpha_enc.py), after the reference's
+transparent-area cleanup unless exact=True.
 
 The device path converts RGB to YUV on the device (ops/yuv.py, whose
 constants live here, or ops/sharpyuv.py); the host planes of
@@ -33,7 +44,6 @@ re-encodes an image whose escape list overflowed the device's capacity
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
 
 import numpy as np
 
@@ -168,18 +178,6 @@ def _has_alpha(a: np.ndarray) -> bool:
 BACKENDS = ("device", "auto", "host")
 
 
-def _unported(opts: EncoderOptions, a: np.ndarray) -> Optional[str]:
-    """Why these options need a slice that is not ported yet (the ROADMAP
-    item that brings it), or None."""
-    if opts.lossless:
-        return ('lossless: the VP8L encoder is ROADMAP.md queue 1 item 3, '
-                '"Lossless and alpha"')
-    if _has_alpha(a):
-        return ('alpha < 255: the ALPH chunk needs the lossless coder, '
-                'ROADMAP.md queue 1 item 3, "Lossless and alpha"')
-    return None
-
-
 def encode(img, device=None, **options) -> bytes:
     """Encodes an RGB(A) uint8 array [h, w, 3|4] to a WebP file. The
     device backends run on `device` (None: the card; "cpu": the plain
@@ -197,9 +195,8 @@ def encode(img, device=None, **options) -> bytes:
     if opts.backend not in BACKENDS:
         raise ValueError(f"webp_tpu_torch.encode: unknown backend "
                          f"{opts.backend!r} (one of {BACKENDS})")
-    why = _unported(opts, a)
-    if why is not None:
-        raise NotImplementedError(f"webp_tpu_torch.encode: {why}")
+    if opts.lossless:
+        return _encode_lossless(a, opts, device)
     if opts.target_size > 0 or opts.target_psnr > 0:
         return _encode_lossy_rate_controlled(a, opts, device)
     return _encode_lossy(a, opts, device)
@@ -344,7 +341,32 @@ def _encode_lossy(a: np.ndarray, opts: EncoderOptions, device,
     with sharp YUV, as the reference's), else the overflow fallback
     imports its own when it is taken. Host backend: the exact host
     encoder on host planes (sharp or dithered), PSNR from its
-    reconstruction."""
+    reconstruction. With alpha < 255: unless exact=True, the
+    transparent-area cleanup (reference encode.go:788: the RGB under
+    invisible pixels smoothed so that it costs no DCT bits), and the ALPH
+    plane encoded on a host thread while the frame is (as the
+    reference's; both spend their time in native code or on the card)."""
+    if _has_alpha(a):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .lossy.alpha_enc import encode_alpha
+        from .utils.alpha import cleanup_transparent_lossy
+
+        frame = a if opts.exact else cleanup_transparent_lossy(a)
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            alpha_future = ex.submit(
+                encode_alpha, a[..., 3], quality=opts.alpha_quality,
+                method=opts.alpha_compression,
+                filtering=opts.alpha_filtering, effort=opts.method)
+            return _encode_lossy_frame(frame, opts, device, _yuv_cache,
+                                       alpha_future)
+    return _encode_lossy_frame(a, opts, device, _yuv_cache, None)
+
+
+def _encode_lossy_frame(a: np.ndarray, opts: EncoderOptions, device,
+                        _yuv_cache, alpha_future) -> bytes:
+    """_encode_lossy's VP8 frame, then the container around it and the
+    ALPH payload of alpha_future (None without alpha)."""
     from .lossy.device_encode import (DeviceVP8Encoder, pad_to_macroblocks,
                                       planeless)
     from .lossy.encode import LossyConfig, VP8Encoder
@@ -399,16 +421,39 @@ def _encode_lossy(a: np.ndarray, opts: EncoderOptions, device,
                           passes=1,
                           part0_size=getattr(enc, "stats_part0", 0),
                           token_sizes=tuple(getattr(enc, "stats_parts", ())))
-    if not (opts.iccp or opts.exif or opts.xmp):
+    alpha = b""
+    if alpha_future is not None:
+        alpha = alpha_future.result()
+        LAST_STATS.alpha_size = len(alpha)
+    if not (alpha or opts.iccp or opts.exif or opts.xmp):
         return r.assemble_riff([r.Chunk(r.VP8, vp8)])
-    return _assemble_extended(w, h, vp8, opts)
+    return _assemble_extended(w, h, opts, vp8=vp8, alpha=alpha)
 
 
-def _assemble_extended(w: int, h: int, vp8: bytes,
-                       opts: EncoderOptions) -> bytes:
-    """VP8X container with the metadata chunks around the VP8 frame (the
-    reference's _assemble_extended without ALPH and VP8L)."""
-    flags = ((r.FLAG_ICCP if opts.iccp else 0)
+def _encode_lossless(a: np.ndarray, opts: EncoderOptions, device) -> bytes:
+    """A VP8L frame (the reference's _encode_lossless); the predictor
+    search runs on `device` with the device backends, in native C++ with
+    backend="host"."""
+    from .lossless.encode import HOST, encode_vp8l
+    from .lossy.device_encode import _resolve_device
+
+    search = HOST if opts.backend == "host" else _resolve_device(device)
+    payload = encode_vp8l(a, quality=int(opts.quality), method=opts.method,
+                          exact=opts.exact, near_lossless=opts.near_lossless,
+                          search=search)
+    if not (opts.iccp or opts.exif or opts.xmp):
+        return r.assemble_riff([r.Chunk(r.VP8L, payload)])
+    h, w = a.shape[:2]
+    return _assemble_extended(w, h, opts, vp8l=payload,
+                              vp8l_alpha=_has_alpha(a))
+
+
+def _assemble_extended(w: int, h: int, opts: EncoderOptions,
+                       vp8: bytes = b"", vp8l: bytes = b"",
+                       alpha: bytes = b"", vp8l_alpha: bool = False) -> bytes:
+    """VP8X container: ICCP, ALPH, the VP8 or VP8L frame, EXIF, XMP."""
+    flags = ((r.FLAG_ALPHA if alpha or vp8l_alpha else 0)
+             | (r.FLAG_ICCP if opts.iccp else 0)
              | (r.FLAG_EXIF if opts.exif else 0)
              | (r.FLAG_XMP if opts.xmp else 0))
     vp8x = flags.to_bytes(4, "little") + (w - 1).to_bytes(3, "little") + \
@@ -416,7 +461,12 @@ def _assemble_extended(w: int, h: int, vp8: bytes,
     chunks = [r.Chunk(r.VP8X, vp8x)]
     if opts.iccp:
         chunks.append(r.Chunk(r.ICCP, opts.iccp))
-    chunks.append(r.Chunk(r.VP8, vp8))
+    if alpha:
+        chunks.append(r.Chunk(r.ALPH, alpha))
+    if vp8:
+        chunks.append(r.Chunk(r.VP8, vp8))
+    if vp8l:
+        chunks.append(r.Chunk(r.VP8L, vp8l))
     if opts.exif:
         chunks.append(r.Chunk(r.EXIF, opts.exif))
     if opts.xmp:

@@ -598,11 +598,6 @@ class VP8Decoder:
         return (self.Y[:h, :w], self.U[:ch, :cw], self.V[:ch, :cw])
 
 
-# Where the port leaves what an ALPH chunk needs.
-LOSSLESS_ITEM = ('ROADMAP.md queue 1 item 3, "Lossless and alpha" (the VP8L '
-                 'decoder that an ALPH chunk and a VP8L frame need)')
-
-
 def decode_vp8_yuv(data: bytes):
     """VP8 keyframe -> cropped (Y, U, V) uint8 planes, by the native
     decoder (built at first use; a failed build raises)."""
@@ -614,12 +609,16 @@ def decode_vp8_yuv(data: bytes):
 
 
 def decode_vp8_rgba(data: bytes, alpha_data: Optional[bytes] = None) -> np.ndarray:
-    """Full VP8 decode to RGBA uint8 [h, w, 4] (alpha 255), by the native
-    decoder and its fancy upsampler. An ALPH payload raises
-    NotImplementedError: its decoder is the lossless one, not ported."""
+    """Full VP8 decode to RGBA uint8 [h, w, 4], by the native decoder and
+    its fancy upsampler; the alpha plane from an ALPH payload
+    (lossy/alpha.py decode_alpha), else 255."""
     from ..native import api as native
 
-    if alpha_data is not None:
-        raise NotImplementedError(f"webp_tpu_torch: ALPH chunk: {LOSSLESS_ITEM}")
     y, u, v = decode_vp8_yuv(data)
-    return native.native_upsample_rgba(y, u, v, 4)
+    rgba = native.native_upsample_rgba(y, u, v, 4)
+    if alpha_data is not None:
+        from .alpha import decode_alpha
+
+        h, w = y.shape
+        rgba[..., 3] = decode_alpha(alpha_data, w, h)
+    return rgba

@@ -1,4 +1,4 @@
-"""ctypes bindings for the port's two native libraries.
+"""ctypes bindings for the port's three native libraries.
 
 The encoder side (get()): the boolean writer, token emission,
 statistics, the closed-loop MB encode (the escape-overflow fallback and
@@ -8,10 +8,17 @@ yuv_import.cc, powf_array.cc and bitio.h.
 
 The decoder side (get_dec()): the VP8 keyframe decoder (vp8_decode), its
 parse-only half for the device decode (vp8_parse), the loop filter's
-SIMD self-test and the fancy-upsampling YUV 4:2:0 -> RGB(A) converter;
-sources native/src/vp8_dec.cc, upsample.cc and bitio.h.
+SIMD self-test, the fancy-upsampling YUV 4:2:0 -> RGB(A) converter and
+the VP8L decoder (vp8l_decode); sources native/src/vp8_dec.cc,
+upsample.cc, vp8l_dec.cc and bitio.h.
 
-Both are compiled with g++ at first use (webp_tpu_torch/_build.py); a
+The lossless encoder side (get_vp8l()): the VP8L entropy-image coder
+(vp8l_encode_entropy_image), the per-tile predictor search
+(vp8l_predictor_transform) and the cross-color search
+(vp8l_cross_color); sources native/src/vp8l_enc.cc and
+vp8l_predictor.cc.
+
+All three are compiled with g++ at first use (webp_tpu_torch/_build.py); a
 failed build raises.
 """
 
@@ -276,6 +283,11 @@ def _setup_dec(lib):
         ct.c_int, ct.c_int, ct.c_void_p, ct.c_int,
     ]
     lib.yuv420_to_rgb_fancy.restype = None
+    lib.vp8l_decode.argtypes = [
+        ct.c_void_p, ct.c_long, ct.c_void_p, ct.c_long,
+        ct.POINTER(ct.c_int), ct.POINTER(ct.c_int), ct.POINTER(ct.c_int),
+    ]
+    lib.vp8l_decode.restype = ct.c_int
     return lib
 
 
@@ -383,3 +395,107 @@ def native_upsample_rgba(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     lib.yuv420_to_rgb_fancy(_ptr(y), y.strides[0], _ptr(u), _ptr(v),
                             u.strides[0], w, h, _ptr(out), nch)
     return out
+
+
+def vp8l_decode(payload: bytes):
+    """Native VP8L decode -> (argb u32 [h, w], has_alpha). Raises
+    BitstreamError on a malformed or truncated stream (the numpy
+    VP8LDecoder's validation)."""
+    from ..lossless.decode import BitstreamError
+
+    lib = get_dec()
+    if len(payload) < 5 or payload[0] != 0x2F:
+        raise BitstreamError("webp: bad VP8L signature")
+    # The dimensions live in the first 4 bytes after the signature.
+    bits = int.from_bytes(payload[1:5], "little")
+    w = (bits & 0x3FFF) + 1
+    h = ((bits >> 14) & 0x3FFF) + 1
+    buf = np.frombuffer(payload, dtype=np.uint8)
+    out = np.empty(w * h, dtype=np.uint32)
+    ow, oh, oa = ct.c_int(), ct.c_int(), ct.c_int()
+    rc = lib.vp8l_decode(_ptr(buf), len(payload), _ptr(out), out.size,
+                         ct.byref(ow), ct.byref(oh), ct.byref(oa))
+    if rc == -3:
+        raise BitstreamError("webp: truncated VP8L stream")
+    if rc != 0:
+        raise BitstreamError("webp: malformed VP8L stream")
+    return out.reshape(h, w), bool(oa.value)
+
+
+# --- Lossless encoder side --------------------------------------------------
+
+
+def _setup_vp8l(lib):
+    lib.vp8l_encode_entropy_image.argtypes = [
+        ct.c_void_p, ct.c_long, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+        ct.c_void_p, ct.c_long,
+    ]
+    lib.vp8l_encode_entropy_image.restype = ct.c_long
+    lib.vp8l_predictor_transform.argtypes = [
+        ct.c_void_p, ct.c_long, ct.c_long, ct.c_int, ct.c_void_p,
+        ct.c_void_p,
+    ]
+    lib.vp8l_predictor_transform.restype = None
+    lib.vp8l_cross_color.argtypes = [
+        ct.c_void_p, ct.c_long, ct.c_long, ct.c_int, ct.c_void_p,
+        ct.c_void_p,
+    ]
+    lib.vp8l_cross_color.restype = ct.c_double
+    return lib
+
+
+_vp8l = None
+
+
+def get_vp8l():
+    """The lossless encoder's library, built from native/src at first
+    use."""
+    global _vp8l
+    if _vp8l is None:
+        _vp8l = _setup_vp8l(_build.load("vp8l_enc"))
+    return _vp8l
+
+
+def vp8l_encode_entropy_image(argb: np.ndarray, xsize: int, quality: int,
+                              is_level0: bool, method: int = 4):
+    """One entropy-coded image stream (colour-cache bit, the meta-Huffman
+    bit and entropy image at level 0, the trees and the LZ77 tokens) ->
+    (bytes, nbits), bit 0 the LSB of the first byte."""
+    lib = get_vp8l()
+    a = np.ascontiguousarray(argb, dtype=np.uint32)
+    cap = a.size * 6 + (1 << 16)
+    out = np.empty(cap, dtype=np.uint8)
+    bits = lib.vp8l_encode_entropy_image(_ptr(a), a.size, xsize,
+                                         int(quality), int(method),
+                                         int(is_level0), _ptr(out), cap)
+    if bits < 0:
+        raise RuntimeError("native VP8L entropy coder: output overflow")
+    return out[: (bits + 7) // 8].tobytes(), int(bits)
+
+
+def vp8l_predictor_transform(img: np.ndarray, bits: int):
+    """Per-tile best-of-14 predictor search -> (residuals u32 [h, w],
+    tile_modes i32 [ty, tx])."""
+    lib = get_vp8l()
+    h, w = img.shape
+    img = np.ascontiguousarray(img, dtype=np.uint32)
+    ty, tx = (h + (1 << bits) - 1) >> bits, (w + (1 << bits) - 1) >> bits
+    out = np.empty((h, w), dtype=np.uint32)
+    modes = np.empty((ty, tx), dtype=np.int32)
+    lib.vp8l_predictor_transform(_ptr(img), h, w, bits, _ptr(out),
+                                 _ptr(modes))
+    return out, modes
+
+
+def vp8l_cross_color(img: np.ndarray, bits: int):
+    """Cross-color search and application -> (out u32 [h, w], tiles u32
+    [ty, tx], the estimated gain in bits)."""
+    lib = get_vp8l()
+    h, w = img.shape
+    img = np.ascontiguousarray(img, dtype=np.uint32)
+    ty, tx = (h + (1 << bits) - 1) >> bits, (w + (1 << bits) - 1) >> bits
+    out = np.empty((h, w), dtype=np.uint32)
+    tiles = np.empty((ty, tx), dtype=np.uint32)
+    gain = lib.vp8l_cross_color(_ptr(img), h, w, bits, _ptr(out),
+                                _ptr(tiles))
+    return out, tiles, float(gain)

@@ -9,7 +9,6 @@
 //
 // All RD arithmetic is int64; transforms match lossy/dsp.py exactly.
 
-#include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -1187,22 +1186,6 @@ void vp8_encode_mbs(
   std::vector<uint8_t> top_bmodes(mb_w * 4, 0);
   uint8_t left_bmodes[4];
 
-  // Per-phase wall-clock accumulation (WEBPTPU_MB_PROF=1; =2 adds the
-  // I4 sub-phase split: pred/fdct/quant, rate, idct+disto, trellis).
-  static const char* kProfEnv = std::getenv("WEBPTPU_MB_PROF");
-  static const bool kProf = kProfEnv != nullptr;
-  static const bool kProf2 = kProfEnv && kProfEnv[0] == '2';
-  double ph[4] = {0, 0, 0, 0};  // i16, i4, uv, rest
-  double sp[4] = {0, 0, 0, 0};  // I4: pfq, rate, idct+disto, trellis
-  auto now = [] { return std::chrono::steady_clock::now(); };
-  auto acc = [&](int k, auto a, auto b) {
-    ph[k] += std::chrono::duration<double, std::milli>(b - a).count();
-  };
-  auto acc2 = [&](int k, auto a, auto b) {
-    sp[k] += std::chrono::duration<double, std::milli>(b - a).count();
-  };
-  auto tmb0 = now();
-
   for (int mb_y = 0; mb_y < mb_h; ++mb_y) {
     uint32_t left_nz = 0;
     uint8_t left_dc = 0;
@@ -1238,7 +1221,6 @@ void vp8_encode_mbs(
       // per-mode transform pipeline: the mode is picked by
       // prediction-domain SSE and only the winner is encoded (reference
       // encode.go maps low methods to rd_opt=none the same way).
-      auto tp0 = now();
       int64_t i16_score = 0;
       int64_t i16_rate = 0, i16_disto = 0;
       int i16_mode = 0;
@@ -1360,8 +1342,6 @@ void vp8_encode_mbs(
       }
 
       // ---- I4 pick (encode.py _pick_i4): sequential 4x4 RD search.
-      auto tp1 = now();
-      if (kProf) acc(0, tp0, tp1);
       bool use_i4 = false;
       uint8_t i4_modes[16];
       int32_t i4_levels[16][16];
@@ -1410,7 +1390,6 @@ void vp8_encode_mbs(
           int32_t preds[10][16], coefs[10][16], lvs[10][16], dqs4[10][16];
           uint32_t msks[10];
           int64_t rates[10];
-          auto ts0 = now();
           PredLuma4All(top, left, tl, tr, preds);
           for (int mode = 0; mode < 10; mode += 2)
             FDCT4x4_2(sblk, preds[mode], coefs[mode],
@@ -1419,14 +1398,10 @@ void vp8_encode_mbs(
             QuantizeBlock2(coefs[mode], coefs[mode + 1], Q.y1, 0, lvs[mode],
                            lvs[mode + 1], dqs4[mode], dqs4[mode + 1],
                            &msks[mode], &msks[mode + 1]);
-          auto ts1 = now();
-          if (kProf2) acc2(0, ts0, ts1);
           for (int mode = 0; mode < 10; ++mode)
             rates[mode] =
                 ResidualCost(lvs[mode], msks[mode], 0, ctx, 3, T) +
                 fc_row[mode];
-          auto ts2 = now();
-          if (kProf2) acc2(1, ts1, ts2);
           int64_t best_score = 0;
           int best_mode = 0;
           int32_t best_rec[16];
@@ -1449,8 +1424,6 @@ void vp8_encode_mbs(
               best_rate = rates[mode];
             }
           }
-          auto ts3 = now();
-          if (kProf2) acc2(2, ts2, ts3);
           int32_t* best_lv = lvs[best_mode];
           if (method >= 4) {
             // Trellis re-quantization of the winning mode (prediction and
@@ -1462,7 +1435,6 @@ void vp8_encode_mbs(
             for (int i = 0; i < 16; ++i)
               best_rec[i] = Clip255(preds[best_mode][i] + res[i]);
           }
-          if (kProf2) acc2(3, ts3, now());
           i4_modes[n] = (uint8_t)best_mode;
           memcpy(i4_levels[n], best_lv, sizeof(i4_levels[n]));
           for (int rr = 0; rr < 4; ++rr)
@@ -1492,8 +1464,6 @@ void vp8_encode_mbs(
         }
       }
 
-      auto tp2 = now();
-      if (kProf) acc(1, tp1, tp2);
       int32_t* mb_levels = levels + (size_t)mb * 24 * 16;
       int luma_nz = 0;
       if (use_i4) {
@@ -1647,7 +1617,6 @@ void vp8_encode_mbs(
           memcpy(best_recV, rV, sizeof(rV));
         }
       }
-      if (kProf) acc(2, tp2, now());
       uvmode[mb] = (uint8_t)best_uv_mode;
       int uv_nz = 0;
       for (int bi = 0; bi < 4; ++bi) {
@@ -1724,15 +1693,6 @@ void vp8_encode_mbs(
         left_nz = out_lnz;
       }
     }
-  }
-  if (kProf) {
-    const double total =
-        std::chrono::duration<double, std::milli>(now() - tmb0).count();
-    fprintf(stderr, "[mbloop] i16=%.0fms i4=%.0fms uv=%.0fms rest=%.0fms\n",
-            ph[0], ph[1], ph[2], total - ph[0] - ph[1] - ph[2]);
-    if (kProf2)
-      fprintf(stderr, "[mbloop/i4] pfq=%.0fms rate=%.0fms recon=%.0fms "
-              "trellis=%.0fms\n", sp[0], sp[1], sp[2], sp[3]);
   }
 }
 
