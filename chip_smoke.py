@@ -87,6 +87,26 @@ Phases, each of which raises on failure (the script then exits nonzero):
      card ms against host ms); the other ops/lossless.py functions card
      against CPU; card files against CPU files at 64x48, 72x40 and 33x17
      (lossless, lossy with alpha, near_lossless=60).
+ 12. Animation (animation()). 24 RGBA frames at 1280x720 (a synth_images
+     background, a 160x160 textured opaque sprite moving 24 px per frame,
+     a semi-transparent banner on frames 8-15, frames 5 and 6 repeating
+     frame 4, a cut to a new background at frame 16), 42 ms each:
+     encode_animation_device on the card, counted (each kernel once per
+     batch of 8 unique frames; its ANMF payloads equal
+     encode_lossy_stream's bitstreams of the unique frames; wall seconds
+     and Mpx/s; each kernel held against its plain version on every
+     batch's recorded inputs); encode_animation at the defaults (lossy)
+     and lossless (method 3) on the card and with backend="host" (equal
+     files, no kernel; keyframes, sub-frames and merged frames), and
+     lossless at the defaults (method 4) on the first 3 frames on both
+     (equal files, canvases equal to the source); decode_animation
+     of the three files on both backends and AnimDecoder on the card
+     (canvases equal across backends and to the CPU compositor's, the
+     lossless canvases equal to the source, the lossy files' PSNR by
+     ops/metrics on the card; ms per frame; no kernel); the device
+     decode's programs per frame geometry and a first-seen against a
+     repeated geometry's ms; card files and canvases against the CPU's at
+     64x48 and 72x40; ops/metrics card against CPU on 1280x720 planes.
 
 Kernel times ("ms") are the card's own (runs queued behind a sleep, CUDA
 events); each kernel's time per call from an idle card, which also
@@ -98,7 +118,9 @@ kernel's route, source, the TPU kernel it replaces, launches on the main
 path and in the stream (stream_launches) and, for kernel 3, at methods
 5 and 6 (quality_launches, with its card and plain times there), its
 launches in phase 11 (lossless_launches: the alpha encode, the lossless
-encodes, the decodes), error, times and bound; the last line is
+encodes, the decodes), its launches in phase 12 (animation_launches:
+the device encode, the AnimEncoder encodes, the decodes), error, times
+and bound; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -340,16 +362,27 @@ def hold(name, kernel, plain, args, replaces, launches, n_bytes, n_ops,
                 mismatches=mismatches)
 
 
+def hold_calls(name, kernel, plain, calls):
+    """Kernel against its plain version on each recorded call's card
+    tensors (integer outputs equal, scores within SCORE_RTOL; raises
+    otherwise); returns the largest absolute error over the calls and the
+    kernel's time on the card in ms for each call."""
+    err, ms = 0.0, []
+    for args in calls:
+        got, ref = _outputs(kernel(*args)), _outputs(plain(*args))
+        for g, r in zip(got, ref):
+            if not (torch.allclose(g, r, rtol=SCORE_RTOL, atol=0)
+                    if g.is_floating_point() else torch.equal(g, r)):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     "version")
+            err = max(err, float((g.double() - r.double()).abs().max()))
+        ms.append(time_ms(lambda: kernel(*args), 10))
+    return err, ms
+
+
 def hold_exact(name, kernel, plain, args):
-    """Kernel against its plain version on the same card tensors (outputs
-    equal, scores within SCORE_RTOL; raises otherwise); returns the
-    kernel's time on the card in ms."""
-    got, ref = _outputs(kernel(*args)), _outputs(plain(*args))
-    for g, r in zip(got, ref):
-        if not (torch.allclose(g, r, rtol=SCORE_RTOL, atol=0)
-                if g.is_floating_point() else torch.equal(g, r)):
-            raise AssertionError(f"{name} disagrees with its plain version")
-    return time_ms(lambda: kernel(*args), 10)
+    """hold_calls on one call; returns the kernel's time in ms."""
+    return hold_calls(name, kernel, plain, [args])[1][0]
 
 
 def single_image(seed, card, hold):
@@ -954,6 +987,314 @@ def lossless(seed, card, w=W, h=H, dev=CARD):
     return out
 
 
+ANIM_W, ANIM_H, ANIM_N, ANIM_MS = 1280, 720, 24, 42
+# Phase 12's 24-frame lossless AnimEncoder runs at method 3: at method 4
+# (the default) every sub-frame of at most 65,536 pixels runs the
+# exact-size transform search (about a dozen entropy encodes per
+# candidate, up to four candidates per frame), about 12x method 3 per
+# rect, which on two backends would take the script past its time limit.
+# The default runs on the first ANIM_DEFAULT_N frames instead.
+ANIM_LOSSLESS_METHOD = 3
+ANIM_DEFAULT_N = 3
+
+
+def anim_scene(rng, w, h, n):
+    """Phase 12's frames, RGBA: a synth_images background; a textured
+    opaque sprite (160x160 at full size) moving 24 px per frame; a
+    semi-transparent banner (alpha 128) on frames 8-15; frames 5 and 6
+    repeat frame 4; frame 16 cuts to a new background."""
+    bgs = synth_images(rng, 2, h, w)
+    s = min(160, h // 3, w // 3)
+    sprite = synth_images(rng, 1, s, s)[0].astype(np.int16)
+    sprite = np.clip(sprite + rng.integers(-40, 41, sprite.shape), 0,
+                     255).astype(np.uint8)
+    frames = []
+    for i in range(n):
+        if i in (5, 6):
+            frames.append(frames[4].copy())
+            continue
+        f = np.dstack([bgs[1 if i >= 16 else 0],
+                       np.full((h, w), 255, np.uint8)])
+        x0, y0 = (w // 20 + 24 * i) % (w - s) & ~1, (h - s) // 2 & ~1
+        f[y0:y0 + s, x0:x0 + s, :3] = sprite
+        if 8 <= i <= 15:
+            f[h // 8: h // 4, w // 10: w - w // 10] = (250, 210, 40, 128)
+        frames.append(f)
+    return frames
+
+
+def unique_runs(frames):
+    """The frames left after merging identical neighbours."""
+    out = [frames[0]]
+    for a, b in zip(frames, frames[1:]):
+        if not np.array_equal(a, b):
+            out.append(b)
+    return out
+
+
+def frame_kinds(data, w, h, n):
+    """(keyframes, sub-frames, merged input frames) of an animation."""
+    from webp_tpu_torch.container.parser import Parser
+
+    infos = Parser(data).frames()
+    keys = sum(f.x_offset == 0 and f.y_offset == 0
+               and (f.width, f.height) == (w, h) for f in infos)
+    return keys, len(infos) - keys, n - len(infos)
+
+
+def animation(seed, card, w=ANIM_W, h=ANIM_H, n=ANIM_N, dev=CARD,
+              small=((64, 48), (72, 40))):
+    """Phase 12: animation at full width. encode_animation_device on the
+    card (kernels 1-4 once per batch of 8 unique frames, each held
+    against its plain version on every batch's inputs; its ANMF payloads
+    are encode_lossy_stream's bitstreams of the unique frames);
+    encode_animation at the defaults (lossy, host VP8Encoder) and lossless
+    (method 3; at the defaults on the first frames) on the card and with
+    backend="host" (equal files, no kernel);
+    decode_animation of the three files on both backends and AnimDecoder
+    on the card (canvases equal across backends and to a CPU
+    compositor's; the lossless file's canvases equal the source; the lossy
+    files' PSNR by ops/metrics on the card; no kernel); the device
+    decode's programs per frame geometry; card against CPU files and
+    canvases at the small sizes; ops/metrics card against CPU on full-size
+    planes. Returns the kernels' launches in the phase: {"device_encode":
+    {...}, "anim_encoder": {...}, "decode": {...}}."""
+    from webp_tpu_torch.animation import animation as A
+    from webp_tpu_torch.container.parser import Parser
+    from webp_tpu_torch.lossy import device_decode as DD
+    from webp_tpu_torch.lossy import device_encode as DE
+    from webp_tpu_torch.ops import cuda as KC
+    from webp_tpu_torch.ops import decode as OD
+    from webp_tpu_torch.ops import i4_kernel as I4K
+    from webp_tpu_torch.ops import metrics as M
+    from webp_tpu_torch.ops import p1_kernels as P1K
+    from webp_tpu_torch.ops import p2_kernel as P2K
+
+    t_phase = time.perf_counter()
+    frames = anim_scene(np.random.default_rng(seed + 12), w, h, n)
+    unique = unique_runs(frames)
+    n_batches = -(-len(unique) // 8)
+    out = {}
+
+    # The frame-batch device encode, counted; the kernels' card inputs
+    # are recorded.
+    with Recorder(P1K, "alphas") as r_a, \
+            Recorder(P1K, "mode_search") as r_m, \
+            Recorder(I4K, "i4_scores") as r_i4, \
+            Recorder(P2K, "phase2_pack") as r_p2:
+        KC.reset_launches()
+        dev_file, first_s = once(lambda: A.encode_animation_device(
+            frames, ANIM_MS, device=dev))
+        out["device_encode"] = dict(KC.LAUNCHES)
+    check_per_batch(out["device_encode"], n_batches,
+                    f"encode_animation_device, {len(unique)} unique frames")
+    dev_s = wall_s(lambda: A.encode_animation_device(frames, ANIM_MS,
+                                                     device=dev), 2)
+    infos = Parser(dev_file).frames()
+    stream = DE.encode_lossy_stream([f[..., :3] for f in unique],
+                                    device=dev)
+    if [f.bitstream for f in infos] != stream:
+        raise AssertionError("encode_animation_device: the ANMF payloads "
+                             "are not the stream's bitstreams")
+    if any((f.x_offset, f.y_offset, f.width, f.height, int(f.dispose),
+            int(f.blend)) != (0, 0, w, h, 0, 1) for f in infos):
+        raise AssertionError("encode_animation_device: a frame is not a "
+                             "full-canvas NONE/NONE frame")
+    print(f"animation: encode_animation_device {n} frames {w}x{h} "
+          f"({len(unique)} unique) on the card: first call {first_s:.3f} s, "
+          f"then {dev_s:.3f} s wall, "
+          f"{len(unique) * w * h / dev_s / 1e6:.2f} Mpx/s of unique frames; "
+          f"{len(dev_file)} bytes; payloads == encode_lossy_stream's; "
+          f"{card}", flush=True)
+    # Kernels 1-4 against their plain versions on every batch's inputs.
+    sizes = [int(c[0].shape[0]) for c in r_p2.calls]
+    for kname, rec, kernel, plain in (
+            ("p1_alpha", r_a, P1K.alphas, P1K.alphas_plain),
+            ("p1_mode", r_m, P1K.mode_search, P1K.mode_search_plain),
+            ("i4_search", r_i4, I4K.i4_scores, I4K.i4_scores_plain),
+            ("p2_wavefront", r_p2, P2K.phase2_pack, P2K.phase2_pack_plain)):
+        if len(rec.calls) != n_batches:
+            raise AssertionError(f"{kname}: {len(rec.calls)} recorded "
+                                 f"calls, expected {n_batches}")
+        err, ms = hold_calls(kname, kernel, plain, rec.calls)
+        print(f"animation: kernel {kname} on encode_animation_device's "
+              f"{w // 16}x{h // 16}-MB batches of {sizes}: agrees with its "
+              f"plain version (max abs err {err}); "
+              + ", ".join(f"{t:.4f}" for t in ms) + f" ms on the card; "
+              f"{card}", flush=True)
+
+    # AnimEncoder: lossy at the defaults, lossless on both backends.
+    files = {"device": dev_file}
+    KC.reset_launches()
+    files["lossy"], lossy_s = once(lambda: A.encode_animation(
+        frames, ANIM_MS, device=dev))
+    ll = dict(lossless=True, method=ANIM_LOSSLESS_METHOD)
+    files["lossless"], ll_card_s = once(lambda: A.encode_animation(
+        frames, ANIM_MS, device=dev, **ll))
+    ll_host, ll_host_s = once(lambda: A.encode_animation(
+        frames, ANIM_MS, backend="host", **ll))
+    if ll_host != files["lossless"]:
+        raise AssertionError("lossless animation: card and host files "
+                             "differ")
+    for name, secs in (("lossy", lossy_s), ("lossless", ll_card_s)):
+        k, s_, m = frame_kinds(files[name], w, h, n)
+        print(f"animation: encode_animation {name} "
+              f"({'defaults' if name == 'lossy' else ll}) {n} frames "
+              f"{w}x{h}: {secs:.3f} s wall on the card"
+              + (f" (backend=\"host\" {ll_host_s:.3f} s, files equal)"
+                 if name == "lossless" else "")
+              + f"; {len(files[name])} bytes; {k} keyframes, {s_} "
+              f"sub-frames, {m} merged; {card}", flush=True)
+
+    # Lossless at the defaults (method 4) on the first frames, card and
+    # host, beside method 3 on the same frames.
+    few = frames[:ANIM_DEFAULT_N]
+    d4, d4_card_s = once(lambda: A.encode_animation(
+        few, ANIM_MS, lossless=True, device=dev))
+    d4_host, d4_host_s = once(lambda: A.encode_animation(
+        few, ANIM_MS, lossless=True, backend="host"))
+    _, d3_s = once(lambda: A.encode_animation(few, ANIM_MS, device=dev, **ll))
+    out["anim_encoder"] = dict(KC.LAUNCHES)
+    if d4_host != d4:
+        raise AssertionError("lossless animation at the defaults: card and "
+                             "host files differ")
+    back = [c for c, _ in A.AnimDecoder(A.decode_animation(
+        d4, backend="host"), device="cpu")]
+    if len(back) != len(few) or not all(
+            np.array_equal(c, f) for c, f in zip(back, few)):
+        raise AssertionError("lossless animation at the defaults: canvases "
+                             "differ from the source")
+    k, s_, m = frame_kinds(d4, w, h, len(few))
+    print(f"animation: encode_animation lossless (defaults, method 4) "
+          f"{len(few)} frames {w}x{h}: {d4_card_s:.3f} s wall on the card, "
+          f"backend=\"host\" {d4_host_s:.3f} s, files equal, canvases == "
+          f"source; method 3 on the same frames {d3_s:.3f} s on the card; "
+          f"{len(d4)} bytes; {k} keyframes, {s_} sub-frames, {m} merged; "
+          f"{card}", flush=True)
+
+    # Decodes on both backends and the compositor; the device decode's
+    # programs per frame geometry.
+    KC.reset_launches()
+    info0 = OD.decode_fn.cache_info()
+    canvases = {}
+    for name, data in files.items():
+        lossy_geoms = {(f.width, f.height) for f in Parser(data).frames()
+                       if not f.is_lossless}
+        on_card, card_s = once(lambda: A.decode_animation(data, device=dev))
+        on_host, host_s = once(lambda: A.decode_animation(data,
+                                                          backend="host"))
+        for a, b in zip(on_card.frames, on_host.frames):
+            if not np.array_equal(a.rgba, b.rgba):
+                raise AssertionError(f"{name}: device and host decodes "
+                                     "differ")
+        got, comp_s = once(lambda: [c for c, _ in A.AnimDecoder(
+            on_card, device=dev)])
+        want, comp_cpu_s = once(lambda: [c for c, _ in A.AnimDecoder(
+            on_host, device="cpu")])
+        if len(got) != len(unique) or not all(
+                np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: the card's canvases differ from "
+                                 "the CPU compositor's")
+        canvases[name] = got
+        k = len(on_card.frames)
+        print(f"animation: decode {name} ({k} frames, {len(lossy_geoms)} "
+              f"lossy frame geometries): decode_animation "
+              f"{card_s / k * 1e3:.1f} ms per frame on the card, "
+              f"{host_s / k * 1e3:.1f} on the host; AnimDecoder "
+              f"{comp_s / k * 1e3:.2f} ms per frame on the card, "
+              f"{comp_cpu_s / k * 1e3:.2f} on the CPU; canvases equal; "
+              f"{card}", flush=True)
+    out["decode"] = dict(KC.LAUNCHES)
+    info1 = OD.decode_fn.cache_info()
+    if not all(np.array_equal(c, f)
+               for c, f in zip(canvases["lossless"], unique)):
+        raise AssertionError("lossless animation: canvases differ from the "
+                             "source")
+    for name in ("device", "lossy"):
+        psnr = []
+        for c, f in zip(canvases[name], unique):
+            a = torch.from_numpy(c[..., :3]).to(dev)
+            b = torch.from_numpy(np.ascontiguousarray(f[..., :3])).to(dev)
+            psnr.append(float(M.psnr_from_sse(M.sse(a, b), a.numel())))
+        if not all(np.isfinite(psnr)) or min(psnr) < 20.0:
+            raise AssertionError(f"{name}: PSNR against the source {psnr}")
+        print(f"animation: {name} canvases against the source (RGB, "
+              f"ops/metrics on the card): PSNR min {min(psnr):.2f} dB, "
+              f"median {statistics.median(psnr):.2f} dB", flush=True)
+    if any(out["anim_encoder"].values()) or any(out["decode"].values()):
+        raise AssertionError(f"kernels launched outside the device encode: "
+                             f"{out}")
+    geoms = {(f.width, f.height) for d in files.values()
+             for f in Parser(d).frames() if not f.is_lossless}
+    print(f"animation: device decode programs: {len(geoms)} distinct lossy "
+          f"frame geometries over the three files, {info1.misses - info0.misses}"
+          f" decode programs built (lru_cache of {info1.maxsize}), "
+          f"{info1.currsize} cached", flush=True)
+    lossy_infos = Parser(files["lossy"]).frames()
+    key = next(f for f in lossy_infos if (f.width, f.height) == (w, h))
+    sub = next(f for f in lossy_infos if (f.width, f.height) != (w, h))
+    for label, f in (("keyframe", key), ("sub-frame", sub)):
+        OD.decode_fn.cache_clear()
+        _, new_s = once(lambda: DD.decode_vp8_rgb_device(f.bitstream,
+                                                         device=dev))
+        again_s = wall_s(lambda: DD.decode_vp8_rgb_device(f.bitstream,
+                                                          device=dev), 3)
+        print(f"animation: device decode of a {label} {f.width}x{f.height}: "
+              f"first-seen geometry {new_s * 1e3:.1f} ms, repeated "
+              f"{again_s * 1e3:.1f} ms; {card}", flush=True)
+
+    # Card against CPU, small sizes.
+    for (sw, sh) in small:
+        sf = anim_scene(np.random.default_rng(seed + 13), sw, sh, 10)
+        pairs = [("encode_animation_device", lambda d: A.encode_animation_device(
+                     sf, ANIM_MS, device=d)),
+                 ("lossless", lambda d: A.encode_animation(
+                     sf, ANIM_MS, lossless=True, device=d)),
+                 ("allow_mixed", lambda d: A.encode_animation(
+                     sf, ANIM_MS, allow_mixed=True, device=d))]
+        for label, enc in pairs:
+            data = enc(dev)
+            if data != enc("cpu"):
+                raise AssertionError(f"{sw}x{sh} {label}: card and CPU "
+                                     "files differ")
+            a = [c for c, _ in A.AnimDecoder(A.decode_animation(
+                data, device=dev), device=dev)]
+            b = [c for c, _ in A.AnimDecoder(A.decode_animation(
+                data, device="cpu"), device="cpu")]
+            if len(a) != len(b) or not all(
+                    np.array_equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{sw}x{sh} {label}: card and CPU "
+                                     "canvases differ")
+    print("animation parity: card == CPU files and canvases at "
+          + ", ".join(f"{a}x{b}" for a, b in small)
+          + ": encode_animation_device, lossless, allow_mixed", flush=True)
+
+    # ops/metrics, card against CPU, on full-size planes.
+    pa = torch.from_numpy(np.ascontiguousarray(unique[0][..., 1]))
+    pb = torch.from_numpy(np.ascontiguousarray(canvases["lossy"][0][..., 1]))
+    s_cpu, s_card = M.sse(pa, pb), M.sse(pa.to(dev), pb.to(dev))
+    blk = [t.reshape(h // 4, 4, w // 4, 4).transpose(1, 2).reshape(-1, 4, 4)
+           for t in (pa, pb)]
+    checks = {
+        "sse": int(s_card) == int(s_cpu),
+        "tdisto4x4": torch.equal(M.tdisto4x4(*[t.to(dev) for t in blk]).cpu(),
+                                 M.tdisto4x4(*blk)),
+        "psnr_from_sse": np.isclose(float(M.psnr_from_sse(s_card, pa.numel())),
+                                    float(M.psnr_from_sse(s_cpu, pa.numel())),
+                                    rtol=1e-5, atol=0),
+        "ssim_plane": np.isclose(float(M.ssim_plane(pa.to(dev), pb.to(dev))),
+                                 float(M.ssim_plane(pa, pb)), rtol=1e-5,
+                                 atol=0)}
+    if not all(checks.values()):
+        raise AssertionError(f"ops/metrics: card and CPU differ: {checks}")
+    print(f"ops/metrics: sse, tdisto4x4 exact, psnr_from_sse and ssim_plane "
+          f"within rtol 1e-5, card == CPU on {w}x{h} planes (SSIM "
+          f"{float(M.ssim_plane(pa, pb)):.5f})", flush=True)
+    print(f"animation: phase 12 took {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+    return out
+
+
 class Recorder:
     """Wraps a kernel wrapper so that the main path's call records its
     (card) inputs; the kernel and its plain version are then held against
@@ -1219,6 +1560,12 @@ def main(argv=None):
     for k in kernels:
         k["lossless_launches"] = {part: v[k["name"]]
                                   for part, v in phase11.items()}
+
+    # 12. Animation.
+    phase12 = animation(args.seed, card)
+    for k in kernels:
+        k["animation_launches"] = {part: v[k["name"]]
+                                   for part, v in phase12.items()}
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

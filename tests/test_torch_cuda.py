@@ -638,3 +638,91 @@ def test_lossless_and_alpha_on_the_card_equal_the_cpu(geom, opts):
                                                          backend="host"))
     if opts.get("near_lossless", 100) == 100:
         assert np.array_equal(px[..., 3], img[..., 3])
+
+
+def _anim_frames(h, w, n, seed):
+    """RGBA frames: _images' content under a moving opaque sprite, frame 1
+    repeated, a semi-transparent banner on frames 2 and 3."""
+    rng = np.random.default_rng(seed)
+    bg = _images(1, h, w, seed)[0]
+    sprite = rng.integers(0, 256, (12, 12, 3), np.uint8)
+    out = []
+    for i in range(n):
+        f = np.dstack([bg, np.full((h, w), 255, np.uint8)])
+        x0, y0 = (4 * i) % (w - 12), (2 * i) % (h - 12)
+        f[y0:y0 + 12, x0:x0 + 12, :3] = sprite
+        if i in (2, 3):
+            f[h - 10: h - 4, 2: w - 2] = (240, 30, 200, 128)
+        out.append(f)
+    out.insert(2, out[1].copy())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(64, 48), (72, 40)])
+def test_animation_on_the_card_equals_the_cpu(geom):
+    """encode_animation_device (kernels 1-4 once per batch), the
+    AnimEncoder lossless (predictor search on the card; no kernel) and
+    mixed, then decode_animation on both backends and AnimDecoder on the
+    card: the card's files and canvases equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.animation import animation as A
+    from webp_tpu_torch.ops import cuda
+
+    w, h = geom
+    frames = _anim_frames(h, w, 5, w)
+    cuda.reset_launches()
+    dev = A.encode_animation_device(frames, 40, batch=2)
+    # 5 unique frames of 6 in batches of 2.
+    assert set(cuda.LAUNCHES.values()) == {3}, cuda.LAUNCHES
+    assert dev == A.encode_animation_device(frames, 40, batch=2,
+                                            device="cpu")
+    files = [dev]
+    for opts in (dict(lossless=True), dict(allow_mixed=True), {}):
+        cuda.reset_launches()
+        on_card = A.encode_animation(frames, 40, **opts)
+        assert not any(cuda.LAUNCHES.values())
+        assert on_card == A.encode_animation(frames, 40, device="cpu",
+                                             **opts)
+        assert on_card == A.encode_animation(frames, 40, backend="host",
+                                             **opts)
+        files.append(on_card)
+    for data in files:
+        want = [c for c, _ in A.AnimDecoder(
+            A.decode_animation(data, backend="host"), device="cpu")]
+        anim = A.decode_animation(data)
+        got = [c for c, _ in A.AnimDecoder(anim)]
+        assert len(got) == len(want)
+        assert all(np.array_equal(g, c) for g, c in zip(got, want))
+    lossless = [c for c, _ in A.AnimDecoder(A.decode_animation(files[1]))]
+    assert all(np.array_equal(c, f) for c, f in zip(lossless, [
+        frames[i] for i in (0, 1, 3, 4, 5)]))
+
+
+@pytest.mark.cuda
+def test_alpha_blend_and_metrics_on_the_card_equal_the_cpu():
+    """alpha_blend, sse, tdisto4x4 exactly; psnr_from_sse and ssim_plane
+    within rtol 1e-5, at 1280x720."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.animation.animation import alpha_blend
+    from webp_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(21)
+    src = torch.from_numpy(rng.integers(0, 256, (720, 1280, 4), np.uint8))
+    dst = torch.from_numpy(rng.integers(0, 256, (720, 1280, 4), np.uint8))
+    src[::3, :, 3] = 0
+    src[1::3, :, 3] = 255
+    assert torch.equal(alpha_blend(src.cuda(), dst.cuda()).cpu(),
+                       alpha_blend(src, dst))
+    a, b = src[..., 0], dst[..., 0]
+    s = M.sse(a.cuda(), b.cuda())
+    assert int(s) == int(M.sse(a, b))
+    assert float(M.psnr_from_sse(s, a.numel())) == pytest.approx(
+        float(M.psnr_from_sse(M.sse(a, b), a.numel())), rel=1e-5)
+    blk = (a.reshape(-1, 4, 4), b.reshape(-1, 4, 4))
+    assert torch.equal(M.tdisto4x4(*[t.cuda() for t in blk]).cpu(),
+                       M.tdisto4x4(*blk))
+    assert float(M.ssim_plane(a.cuda(), b.cuda())) == pytest.approx(
+        float(M.ssim_plane(a, b)), rel=1e-5)

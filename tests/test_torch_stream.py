@@ -113,6 +113,31 @@ def test_stream_host_yuv_equals_reference_stream():
     assert got == de_ref.encode_lossy_stream(imgs, 99, batch=2)
 
 
+def test_encode_animation_device_equals_reference():
+    """The frame-batch animation encode: identical frames merge into one
+    ANMF frame, the unique ones go through the stream at its default host
+    YUV. The geometry, quality and batch of the stream test above (120x88,
+    q99, batch 2, a ragged last batch), so the reference reuses its
+    stream program. The file's payloads are the stream's bitstreams."""
+    from webp_tpu.animation import animation as anim_ref
+    from webp_tpu_torch.animation import animation as anim
+    from webp_tpu_torch.container.parser import Parser
+
+    imgs = _images(5, 88, 120, 6)
+    frames = [imgs[0], imgs[0], imgs[1], imgs[2], imgs[2], imgs[2], imgs[3],
+              imgs[0]]
+    durations = [40, 10, 50, 60, 1, 2, 70, 90]
+    got = anim.encode_animation_device(frames, durations, quality=99,
+                                       loop_count=3, batch=2, device="cpu")
+    assert got == anim_ref.encode_animation_device(
+        frames, durations, quality=99, loop_count=3, batch=2)
+    infos = Parser(got).frames()
+    assert [f.duration_ms for f in infos] == [50, 50, 63, 70, 90]
+    unique = [imgs[0], imgs[1], imgs[2], imgs[3], imgs[0]]
+    assert [f.bitstream for f in infos] == DE.encode_lossy_stream(
+        unique, 99, batch=2, device="cpu")
+
+
 def test_stream_default_device_is_the_card_and_never_falls_back():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

@@ -179,6 +179,15 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     assert not offenders, offenders
 
 
+def test_scans_reach_mux_animation_and_metrics():
+    """The isolation and environment scans cover the animation slice's
+    modules, with no exception for them."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {os.path.join("mux", "mux.py"),
+            os.path.join("animation", "animation.py"),
+            os.path.join("ops", "metrics.py")} <= rel
+
+
 def test_forbidden_import_pattern_catches_offenders():
     """The isolation scan's own check: it flags each form of import it
     must, and none of the port's own."""
@@ -307,3 +316,19 @@ def test_tlsd_static_equals_reference(sns, q_i4):
     else:
         _eq(got[0].numpy(), ref[0])
         _eq(got[1].numpy(), ref[1])
+
+
+def test_animation_module_loads_neither_jax_nor_pil():
+    """Importing the port's animation module (and with it mux and
+    ops/metrics) in a fresh process loads neither jax nor PIL, nor the
+    reference package."""
+    code = ("import sys\n"
+            "import webp_tpu_torch.animation.animation\n"
+            "import webp_tpu_torch.mux.mux\n"
+            "import webp_tpu_torch.ops.metrics\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'jax', 'jaxlib', 'PIL', 'webp_tpu'}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"

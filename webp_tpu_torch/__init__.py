@@ -34,8 +34,8 @@ import numpy as np
 
 from .container.parser import Parser, get_features
 from .container.riff import Features, FormatType, WebPError
-from .encoder import (PRESETS, EncoderOptions, EncStats, encode,
-                      options_for_preset)
+from .encoder import (PRESETS, EncoderOptions, EncStats, check_backend,
+                      encode, options_for_preset)
 
 __version__ = "0.1.0"
 
@@ -82,9 +82,7 @@ def decode_rgba(data: bytes, backend: str = "device",
 
     A VP8L frame decodes in the native VP8L decoder on every backend:
     neither this package nor the reference has a device VP8L decode."""
-    if backend not in ("device", "host"):
-        raise ValueError(f"webp_tpu_torch: unknown decode backend "
-                         f"{backend!r}")
+    check_backend(backend, "decode", ("device", "host"))
     frames = Parser(data).frames()
     if not frames:
         raise WebPError("webp: no image frame")

@@ -178,6 +178,14 @@ def _has_alpha(a: np.ndarray) -> bool:
 BACKENDS = ("device", "auto", "host")
 
 
+def check_backend(backend: str, where: str, allowed=BACKENDS) -> None:
+    """The one check of a backend argument, for every entry point:
+    `allowed` is the entry's subset of BACKENDS."""
+    if backend not in allowed:
+        raise ValueError(f"webp_tpu_torch.{where}: unknown backend "
+                         f"{backend!r} (one of {allowed})")
+
+
 def encode(img, device=None, **options) -> bytes:
     """Encodes an RGB(A) uint8 array [h, w, 3|4] to a WebP file. The
     device backends run on `device` (None: the card; "cpu": the plain
@@ -192,9 +200,7 @@ def encode(img, device=None, **options) -> bytes:
     h, w = a.shape[:2]
     if w == 0 or h == 0 or w > MAX_DIMENSION or h > MAX_DIMENSION:
         raise WebPError("webp: invalid dimensions")
-    if opts.backend not in BACKENDS:
-        raise ValueError(f"webp_tpu_torch.encode: unknown backend "
-                         f"{opts.backend!r} (one of {BACKENDS})")
+    check_backend(opts.backend, "encode")
     if opts.lossless:
         return _encode_lossless(a, opts, device)
     if opts.target_size > 0 or opts.target_psnr > 0:

@@ -25,11 +25,11 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-import numpy as np
 import torch
 
 from . import cuda
 from .fastpath import RC_FC16, RC_FCUV, RC_I4MODE, RC_PT
+from .metrics import WEIGHT_Y
 from .planar import (
     approx_rate_p,
     fdct4x4_p,
@@ -46,9 +46,6 @@ C_TOPY, C_LEFTY, C_TLY = 0, 16, 32
 C_TOPU, C_LEFTU, C_TLU = 33, 41, 49
 C_TOPV, C_LEFTV, C_TLV = 50, 58, 66
 C_HT, C_HL, C_SEG = 67, 68, 69
-
-WEIGHT_Y = np.array([38, 32, 20, 9, 32, 28, 17, 7,
-                     20, 17, 10, 4, 9, 7, 4, 2], np.int32).reshape(4, 4)
 
 
 def unpack_rate_consts(rc: torch.Tensor):
