@@ -107,6 +107,27 @@ Phases, each of which raises on failure (the script then exits nonzero):
      decode's programs per frame geometry and a first-seen against a
      repeated geometry's ms; card files and canvases against the CPU's at
      64x48 and 72x40; ops/metrics card against CPU on 1280x720 planes.
+ 13. The band encoders (bands()), on 4 synthetic 1536x1024 images: the
+     non-planar program (fast_encode_fn(..., planar=False): kernel 3 once,
+     kernels 1, 2 and 4 never; its blob equal to the planar program's;
+     wall, device time, phase 2's ms per step), the exact band pipeline
+     (encode_lossy_mesh on 4 bands of one card: kernel 1 once per band,
+     kernels 2 and 3 once per band and once per first-row extension, 7;
+     files equal to encode_batch's; seconds per image, Phase B's steps)
+     and the stream's multi-device branch (encode_lossy_stream with
+     devices=: the same launches and files), the sharded encoder on a
+     (dp=1, sp=4) mesh (kernels 1 and 3 once per band; its files decoded,
+     PSNR beside the single-device files'), kernels 1-3 against their
+     plain versions on every call of the first two, card against CPU at
+     64x64 with 2 bands, and the wavefront oracle (equal to the host
+     encoder's I16 path at 64x48, timed at full width; no kernel), with
+     kernel 4 on the oracle's modes held against the oracle's levels at
+     64x48 and 1536x1024. Bands that share one card take turns on it:
+     these times are the band programs' overhead, not multi-card scaling.
+     Where the machine shows several cards, the exact pipeline and the
+     sharded encoder also run with one band per card (files equal to
+     encode_batch's; the sharded outputs equal to 4 bands on one card
+     when there are 4).
 
 Kernel times ("ms") are the card's own (runs queued behind a sleep, CUDA
 events); each kernel's time per call from an idle card, which also
@@ -119,8 +140,13 @@ path and in the stream (stream_launches) and, for kernel 3, at methods
 5 and 6 (quality_launches, with its card and plain times there), its
 launches in phase 11 (lossless_launches: the alpha encode, the lossless
 encodes, the decodes), its launches in phase 12 (animation_launches:
-the device encode, the AnimEncoder encodes, the decodes), error, times
-and bound; the last line is
+the device encode, the AnimEncoder encodes, the decodes), its launches
+in phase 13 (band_launches: the non-planar program, the exact pipeline,
+the stream's multi-device branch, the sharded encoder, the oracle), for
+kernels 1-3 their times and bounds on the exact pipeline's bands
+(band_ms, band_bound_ms; kernel 3 also the non-planar program's and the
+band paths' times), error,
+times and bound; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1295,6 +1321,347 @@ def animation(seed, card, w=ANIM_W, h=ANIM_H, n=ANIM_N, dev=CARD,
     return out
 
 
+def check_launches(got, want, what):
+    """Raises unless the kernels' launch counts of a path are `want`."""
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+class Timed:
+    """Wraps a module function so that every call is timed on the host
+    between two torch.cuda.synchronize() calls; the times go to .times."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.times = []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - t0)
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def bands(seed, card, w=W, h=H, n=4, dev=CARD, small=(64, 64)):
+    """Phase 13: the band encoders. n images of w x h (96x64 MBs at full
+    width) from the seed, on `dev`:
+
+    (a) the non-planar program, fast_encode_fn(..., planar=False).rgbp_blob,
+        counted (kernel 3 once, kernels 1, 2 and 4 never), its blob equal
+        to the planar program's; wall and device seconds, phase 2's steps
+        and ms per step; kernel 3 against its plain version on its inputs;
+    (b) the exact band pipeline, encode_lossy_mesh on 4 bands of [dev] * 4,
+        counted (kernel 1 once per band, kernels 2 and 3 once per band and
+        once per extension), its files equal to encode_batch's, and
+        encode_lossy_stream(devices=[dev] * 4) with the same launches and
+        files; seconds per image, Phase B's steps; kernels 1-3 against
+        their plain versions on every call (the band batches' ms);
+    (c) the sharded encoder on a (dp=1, sp=4) mesh of [dev] * 4, counted
+        (kernels 1 and 3 once per band), its files decoded by the port's
+        decoders (card and host equal), PSNR beside encode_batch's files';
+    (b, c) again with one band per card where the machine shows several;
+    (d) (a), (b) and (c) on dev against the CPU at `small` with 2 bands;
+    (e) the wavefront oracle on dev at 64x48 against the host VP8Encoder's
+        I16 path, and timed once at full width; kernel 4 on the oracle's
+        modes against the oracle's levels at both sizes.
+    Returns {"launches": {path: counts}, "k3": {...}, "band": {...}}
+    for the kernels line."""
+    import webp_tpu_torch
+    from webp_tpu_torch.container import riff
+    from webp_tpu_torch.encoder import _psnr_of, rgb_to_yuv420
+    from webp_tpu_torch.lossy import device_encode as DE
+    from webp_tpu_torch.lossy.encode import LossyConfig, VP8Encoder
+    from webp_tpu_torch.ops import cuda as KC
+    from webp_tpu_torch.ops import fastpath as FP
+    from webp_tpu_torch.ops import i4_kernel as I4K
+    from webp_tpu_torch.ops import p1_kernels as P1K
+    from webp_tpu_torch.ops import p2_kernel as P2K
+    from webp_tpu_torch.ops import wavefront as WF
+    from webp_tpu_torch.parallel import exact as EX
+    from webp_tpu_torch.parallel import mesh as ME
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 13)
+    imgs = synth_images(rng, n, h, w)
+    mb_w, mb_h = w // 16, h // 16
+    px = n * w * h
+    none = {k: 0 for k in KC.LAUNCHES}
+    launches, k3 = {}, {}
+
+    def riffs(frames):
+        return [riff.assemble_riff([riff.Chunk(riff.VP8, f)])
+                for f in frames]
+
+    # (a) The non-planar program.
+    fn = FP.fast_encode_fn(mb_w, mb_h, QUALITY, 4, 50, True, planar=False)
+    x = torch.as_tensor(np.ascontiguousarray(imgs.transpose(0, 3, 1, 2))) \
+        .to(dev)
+    with Recorder(I4K, "i4_scores") as r_np:
+        KC.reset_launches()
+        blob, first_s = once(lambda: fn.rgbp_blob(x))
+        launches["nonplanar"] = dict(KC.LAUNCHES)
+    check_launches(launches["nonplanar"], dict(none, i4_search=1),
+                   "non-planar program")
+    planar = FP.fast_encode_fn(mb_w, mb_h, QUALITY, 4, 50, True)
+    if not all(torch.equal(a, b) for a, b in zip(blob, planar.rgbp_blob(x))):
+        raise AssertionError("non-planar blob differs from the planar one")
+    wall = wall_s(lambda: fn.rgbp_blob(x), 2)
+    dev_ms = time_ms(lambda: fn.rgbp_blob(x), 2, queued=False)
+    with Timed(FP, "_phase2") as t_p2:
+        fn.rgbp_blob(x)
+    steps = mb_w + mb_h - 1
+    err_np, ms_np = hold_calls("i4_search", I4K.i4_scores,
+                               I4K.i4_scores_plain, r_np.calls)
+    print(f"bands (a): non-planar fast_encode_fn B={n} {w}x{h}: first call "
+          f"{first_s:.3f} s, then {wall:.3f} s wall, {dev_ms:.1f} ms device "
+          f"(CUDA events, host launches included), {px / wall / 1e6:.2f} "
+          f"Mpx/s; phase 2 {t_p2.times[0]:.3f} s over {steps} steps, "
+          f"{t_p2.times[0] / steps * 1e3:.3f} ms per step (CUDA graph); "
+          f"blob equal to the planar program's; launches "
+          f"{launches['nonplanar']}; kernel 3 on its inputs "
+          f"{ms_np[0]:.4f} ms, exact against its plain version (max abs "
+          f"err {err_np}); {card}", flush=True)
+    k3.update(nonplanar_ms=ms_np[0], nonplanar_wall_s=wall,
+              nonplanar_p2_ms_per_step=t_p2.times[0] / steps * 1e3)
+
+    # (b) The exact band pipeline on 4 bands.
+    sp = 4
+    devs = [dev] * sp
+    exact_counts = dict(none, p1_alpha=sp, p1_mode=2 * sp - 1,
+                        i4_search=2 * sp - 1)
+    with Recorder(P1K, "alphas") as r_a, \
+            Recorder(P1K, "mode_search") as r_m, \
+            Recorder(I4K, "i4_scores") as r_ex:
+        KC.reset_launches()
+        frames, ex_first = once(lambda: EX.encode_lossy_mesh(
+            list(imgs), devices=devs))
+        launches["exact"] = dict(KC.LAUNCHES)
+    check_launches(launches["exact"], exact_counts, "exact band pipeline")
+    files_batch = webp_tpu_torch.encode_batch(list(imgs), QUALITY,
+                                              device=dev)
+    if riffs(frames) != files_batch:
+        raise AssertionError("exact band pipeline: files differ from "
+                             "encode_batch's")
+    # The stream's multi-device branch, asked for with devices=.
+    KC.reset_launches()
+    stream = DE.encode_lossy_stream(list(imgs), QUALITY, devices=devs)
+    launches["stream"] = dict(KC.LAUNCHES)
+    check_launches(launches["stream"], exact_counts,
+                   "encode_lossy_stream(devices=...)")
+    if riffs(stream) != files_batch:
+        raise AssertionError("encode_lossy_stream(devices=...): files "
+                             "differ from encode_batch's")
+    ex_s = wall_s(lambda: EX.encode_lossy_mesh(list(imgs), devices=devs), 1)
+    with Timed(FP, "_phase2") as t_ex:
+        EX.encode_lossy_mesh(list(imgs), devices=devs)
+    band_steps = mb_w + mb_h // sp - 1
+    p2_ms = sum(t_ex.times) / len(t_ex.times) / band_steps * 1e3
+    err_ex, ms_ex = hold_calls("i4_search", I4K.i4_scores,
+                               I4K.i4_scores_plain, r_ex.calls)
+    err_a, ms_a = hold_calls("p1_alpha", P1K.alphas, P1K.alphas_plain,
+                             r_a.calls)
+    err_m, ms_m = hold_calls("p1_mode", P1K.mode_search,
+                             P1K.mode_search_plain, r_m.calls)
+    band_args = r_ex.calls[0]
+    plain_ms = time_ms(lambda: I4K.i4_scores_plain(*band_args), 1,
+                       queued=False)
+
+    def k3_bound(args):
+        """Kernel 3's bound on one call's inputs (as phase 4 counts)."""
+        n_sb = args[0].shape[1]
+        n_in = sum(a.numel() * a.element_size() for a in args
+                   if isinstance(a, torch.Tensor))
+        return bound_ms(n_in + 8 * n_sb, _ops_i4_per_sb(args[-1]) * n_sb)
+    band_bd, band_by = k3_bound(band_args)
+    np_bd, _ = k3_bound(r_np.calls[0])
+
+    def lanes_bound(args, out_per_lane, ops_per_lane):
+        """Kernel 1's or 2's bound on one call (as phase 4 counts)."""
+        n = args[0].shape[1]
+        n_in = sum(a.numel() * a.element_size() for a in args
+                   if isinstance(a, torch.Tensor))
+        return bound_ms(n_in + out_per_lane * n, ops_per_lane * n)[0]
+    a_bd = lanes_bound(r_a.calls[0], 8, _ops_alpha_per_mb())
+    m_bd = lanes_bound(r_m.calls[0], 12, _ops_mode_per_mb(r_m.calls[0][-1]))
+    print(f"bands (b): encode_lossy_mesh on {sp} bands of {dev} x {sp}: "
+          f"first call {ex_first:.3f} s, then {ex_s:.3f} s, "
+          f"{ex_s / n:.3f} s per image; Phase B {n + sp - 1} pipeline "
+          f"steps, {len(t_ex.times)} band wavefronts of {band_steps} steps, "
+          f"{sum(t_ex.times):.3f} s ({p2_ms:.3f} ms per step); files equal to "
+          f"encode_batch's; launches {launches['exact']}; kernel 3 on the "
+          f"band batches ({n} images x {mb_h // sp} MB rows) "
+          f"{', '.join(f'{m:.4f}' for m in ms_ex[:sp])} ms, on the "
+          f"extensions (2 MB rows) "
+          f"{', '.join(f'{m:.4f}' for m in ms_ex[sp:])} ms, plain "
+          f"{plain_ms:.2f} ms on band 0, bound {band_bd:.4f} ms by "
+          f"{band_by} (the non-planar batch's {np_bd:.4f} ms), exact (max "
+          f"abs err {err_ex}); kernel 1 on the bands "
+          f"{', '.join(f'{m:.4f}' for m in ms_a)} ms (bound {a_bd:.4f} ms, "
+          f"max abs err {err_a}), kernel 2 on the bands "
+          f"{', '.join(f'{m:.4f}' for m in ms_m[:sp])} ms (bound "
+          f"{m_bd:.4f} ms) and the extensions "
+          f"{', '.join(f'{m:.4f}' for m in ms_m[sp:])} ms (max abs err "
+          f"{err_m}), against their plain versions; "
+          f"encode_lossy_stream(devices=[{dev}] * {sp}) writes the same "
+          f"files, launches {launches['stream']}; {card}", flush=True)
+    band = {"p1_alpha": dict(band_ms=ms_a[0], band_bound_ms=a_bd),
+            "p1_mode": dict(band_ms=ms_m[0], band_bound_ms=m_bd)}
+    k3.update(band_ms=ms_ex[0], band_plain_ms=plain_ms,
+              band_bound_ms=band_bd, nonplanar_bound_ms=np_bd,
+              exact_s_per_image=ex_s / n, exact_p2_ms_per_step=p2_ms)
+
+    # (c) The sharded encoder on a (dp=1, sp=4) mesh.
+    step = ME.make_sharded_encode_fn(ME.make_mesh(devices=devs, dp=1),
+                                     QUALITY)
+    KC.reset_launches()
+    outs, sh_first = once(lambda: step(imgs))
+    launches["sharded"] = dict(KC.LAUNCHES)
+    check_launches(launches["sharded"], dict(none, p1_alpha=sp,
+                                             i4_search=sp),
+                   "sharded encoder")
+    sh_s = wall_s(lambda: step(imgs), 1)
+
+    # One band per card, where the machine shows several.
+    cards = ([torch.device(f"cuda:{i}") for i in range(
+        torch.cuda.device_count())] if dev.type == "cuda" else [])
+    if len(cards) > 1 and mb_h % len(cards) == 0:
+        nc = len(cards)
+        mc, mc_first = once(lambda: EX.encode_lossy_mesh(list(imgs),
+                                                         devices=cards))
+        if riffs(mc) != files_batch:
+            raise AssertionError(f"exact pipeline over {nc} cards: files "
+                                 "differ from encode_batch's")
+        mc_s = wall_s(lambda: EX.encode_lossy_mesh(list(imgs),
+                                                   devices=cards), 1)
+        step_c = ME.make_sharded_encode_fn(
+            ME.make_mesh(devices=cards, dp=1), QUALITY)
+        outs_c = step_c(imgs)
+        if nc == sp and not all(torch.equal(a, b)
+                                for a, b in zip(outs_c, outs)):
+            raise AssertionError(f"sharded encoder over {nc} cards differs "
+                                 f"from {sp} bands on one card")
+        mcs_s = wall_s(lambda: step_c(imgs), 1)
+        if not np.array_equal(webp_tpu_torch.decode_rgba(
+                files_batch[0], device=cards[-1]), webp_tpu_torch.decode_rgba(
+                files_batch[0], backend="host")):
+            raise AssertionError(f"device decode on {cards[-1]} differs from "
+                                 "the host decoder")
+        print(f"bands (b, c) over {nc} cards, one band each: "
+              f"encode_lossy_mesh first call {mc_first:.3f} s, then "
+              f"{mc_s:.3f} s ({mc_s / n:.3f} s per image), files equal to "
+              f"encode_batch's; sharded {mcs_s:.3f} s per batch of {n}"
+              + (f", outputs equal to {sp} bands on one card"
+                 if nc == sp else "")
+              + f"; the device decode on {cards[-1]} equals the host's",
+              flush=True)
+        k3.update(cards=nc, cards_exact_s_per_image=mc_s / n,
+                  cards_sharded_s=mcs_s)
+    files_sh = riffs(EX.host_tail(ME.assemble_from_sharded(
+        outs, sp, mb_w, mb_h), w, h))
+    for f in files_sh:
+        check_webp(f, w, h)
+    on_card = webp_tpu_torch.decode_rgba(files_sh[0], device=dev)
+    if not np.array_equal(on_card, webp_tpu_torch.decode_rgba(
+            files_sh[0], backend="host")):
+        raise AssertionError("sharded file: card and host decodes differ")
+    psnr_sh = [_psnr_of(im, f) for im, f in zip(imgs, files_sh)]
+    psnr_one = [_psnr_of(im, f) for im, f in zip(imgs, files_batch)]
+    print(f"bands (c): sharded encoder (dp=1, sp={sp}): first call "
+          f"{sh_first:.3f} s, then {sh_s:.3f} s per batch of {n}; "
+          f"launches {launches['sharded']}; its files decode (card == "
+          f"host); PSNR sharded {', '.join(f'{p:.3f}' for p in psnr_sh)} "
+          f"dB against single-device "
+          f"{', '.join(f'{p:.3f}' for p in psnr_one)} dB; bytes "
+          f"{sum(map(len, files_sh))} against {sum(map(len, files_batch))}",
+          flush=True)
+
+    # (d) Card against CPU at the small size, 2 bands.
+    sw, sh = small
+    sm = synth_images(rng, 2, sh, sw)
+    cpu = torch.device("cpu")
+    fn_s = FP.fast_encode_fn(sw // 16, sh // 16, QUALITY, 4, 50, True,
+                             planar=False)
+    a, b = (fn_s.rgb_blob(torch.as_tensor(sm).to(d)) for d in (dev, cpu))
+    if not all(torch.equal(p.cpu(), q) for p, q in zip(a, b)):
+        raise AssertionError("non-planar: card and CPU blobs differ")
+    if (EX.encode_lossy_mesh(list(sm), devices=[dev] * 2)
+            != EX.encode_lossy_mesh(list(sm), devices=[cpu] * 2)):
+        raise AssertionError("exact pipeline: card and CPU files differ")
+    o_card, o_cpu = (ME.make_sharded_encode_fn(ME.make_mesh(
+        devices=[d] * 2, dp=1), QUALITY)(sm) for d in (dev, cpu))
+    if not all(torch.equal(p.cpu(), q) for p, q in zip(o_card, o_cpu)):
+        raise AssertionError("sharded encoder: card and CPU outputs differ")
+    print(f"bands (d): card == CPU at {sw}x{sh}, 2 bands: the non-planar "
+          "blob, the exact pipeline's files, the sharded encoder's "
+          "outputs", flush=True)
+
+    # (e) The wavefront oracle.
+    ow = synth_images(rng, 1, 48, 64)[0]
+    Y, U, V = rgb_to_yuv420(ow)
+    KC.reset_launches()
+    got = [o.cpu().numpy() for o in WF.wavefront_encode_fn(4, 3, QUALITY)(
+        *(torch.as_tensor(p).to(dev) for p in (Y, U, V)))]
+    enc = VP8Encoder(Y, U, V, 64, 48, LossyConfig(
+        quality=QUALITY, i4_blocks=False, segments=1, sns_strength=0))
+    enc.encode()
+    if not (np.array_equal(got[0].reshape(enc.levels.shape), enc.levels)
+            and np.array_equal(got[1].reshape(enc.y2_levels.shape),
+                               enc.y2_levels)
+            and np.array_equal(got[2], enc.imodes[..., 0].reshape(-1))):
+        raise AssertionError("wavefront oracle differs from the host "
+                             "encoder's I16 path")
+    Yf, Uf, Vf = (torch.as_tensor(p).to(dev) for p in rgb_to_yuv420(imgs[0]))
+    wf = WF.wavefront_encode_fn(mb_w, mb_h, QUALITY)
+    full, wf_s = once(lambda: wf(Yf, Uf, Vf))
+    launches["oracle"] = dict(KC.LAUNCHES)
+    check_launches(launches["oracle"], none, "wavefront oracle")
+    wf_steps = mb_w + 2 * mb_h - 2
+
+    def kernel4_on(planes, out, mbw, mbh):
+        """Kernel 4 on the oracle's modes (unsegmented, I4 off, rd_drop 0)
+        must quantize the oracle's levels, y2 and skip flags."""
+        n_mb = mbw * mbh
+        plan = FP._single_plan(QUALITY, 0, 1, n_mb, dev)
+        wire = P2K.phase2_pack(
+            *(p[None] for p in planes), out[2][None], out[3][None],
+            torch.zeros((1, n_mb), dtype=torch.bool, device=dev),
+            torch.zeros((1, n_mb, 16), dtype=torch.uint8, device=dev),
+            plan[0], plan[3], 0.0, max(1024, FP.ESC_BLOCKS_PER_MB * n_mb))
+        wire = {k: v[0].cpu().numpy() for k, v in wire.items()}
+        if int(wire["esc_cnt"]) > wire["esc_idx"].shape[0]:
+            raise AssertionError("kernel 4 on the oracle's modes: escape "
+                                 "overflow")
+        lv = FP.unpack_levels(wire["packed"], wire["esc_idx"],
+                              wire["esc_val"], int(wire["esc_cnt"]), n_mb)
+        if not (np.array_equal(lv, out[0].cpu().numpy())
+                and np.array_equal(wire["y2"], out[1].cpu().numpy())
+                and np.array_equal(wire["skip"].astype(bool),
+                                   out[4].cpu().numpy())):
+            raise AssertionError(f"kernel 4 on the oracle's modes differs "
+                                 f"from the oracle at {mbw}x{mbh} MBs")
+    kernel4_on([torch.as_tensor(p).to(dev) for p in (Y, U, V)],
+               [torch.as_tensor(o).to(dev) for o in got], 4, 3)
+    kernel4_on((Yf, Uf, Vf), full, mb_w, mb_h)
+    print(f"bands (e): wavefront oracle on the card equals the host "
+          f"encoder's I16 levels, y2 and modes at 64x48; at {w}x{h} "
+          f"{wf_s:.3f} s ({wf_steps} steps, {wf_s / wf_steps * 1e3:.2f} ms "
+          f"per step), no kernel launched; kernel 4 on the oracle's modes "
+          f"quantizes the oracle's levels, y2 and skip flags at 64x48 and "
+          f"{w}x{h}", flush=True)
+    print(f"bands: phase 13 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches, "k3": k3, "band": band}
+
+
 class Recorder:
     """Wraps a kernel wrapper so that the main path's call records its
     (card) inputs; the kernel and its plain version are then held against
@@ -1566,6 +1933,14 @@ def main(argv=None):
     for k in kernels:
         k["animation_launches"] = {part: v[k["name"]]
                                    for part, v in phase12.items()}
+
+    # 13. The band encoders.
+    phase13 = bands(args.seed, card)
+    for k in kernels:
+        k["band_launches"] = {part: v[k["name"]]
+                              for part, v in phase13["launches"].items()}
+        k.update(phase13["band"].get(k["name"], {}))
+    k3.update(phase13["k3"])
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -726,3 +726,71 @@ def test_alpha_blend_and_metrics_on_the_card_equal_the_cpu():
                        M.tdisto4x4(*blk))
     assert float(M.ssim_plane(a.cuda(), b.cuda())) == pytest.approx(
         float(M.ssim_plane(a, b)), rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_band_encoders_on_the_card_equal_the_cpu():
+    """The non-planar program's blob, the exact band pipeline's files and
+    the sharded encoder's outputs (2 bands, both on the card) and the
+    wavefront oracle's outputs equal the CPU's at 64x64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import fastpath as FP
+    from webp_tpu_torch.ops import wavefront as WF
+    from webp_tpu_torch.parallel import exact as EX
+    from webp_tpu_torch.parallel import mesh as ME
+
+    imgs = np.stack(_images(2, 64, 64, 50))
+    fn = FP.fast_encode_fn(4, 4, 75, 4, 50, True, planar=False)
+    for a, b in zip(fn.rgb_blob(torch.as_tensor(imgs).cuda()),
+                    fn.rgb_blob(torch.as_tensor(imgs))):
+        assert torch.equal(a.cpu(), b)
+    assert (EX.encode_lossy_mesh(list(imgs), devices=["cuda"] * 2)
+            == EX.encode_lossy_mesh(list(imgs), devices=["cpu"] * 2))
+    outs = [ME.make_sharded_encode_fn(ME.make_mesh(devices=[d] * 2, dp=1))(
+        imgs) for d in ("cuda", "cpu")]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(*outs))
+    wf = WF.wavefront_encode_fn(4, 4, 75)
+    from webp_tpu_torch.encoder import rgb_to_yuv420
+
+    planes = [torch.as_tensor(p) for p in rgb_to_yuv420(imgs[0])]
+    for a, b in zip(wf(*(p.cuda() for p in planes)), wf(*planes)):
+        assert torch.equal(a.cpu(), b)
+    from webp_tpu_torch.lossy import device_encode as DE
+
+    assert (DE.encode_lossy_stream(list(imgs), devices=["cuda"] * 2)
+            == DE.encode_lossy_stream(list(imgs), devices=["cpu"] * 2))
+
+
+@pytest.mark.cuda
+def test_kernel4_on_the_oracles_modes_equals_the_oracle():
+    """Kernel 4 on the card, given the wavefront oracle's I16 and chroma
+    modes (unsegmented q75, I4 off, rd_drop 0), quantizes the oracle's
+    levels, y2 and skip flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.encoder import rgb_to_yuv420
+    from webp_tpu_torch.ops import fastpath as FP
+    from webp_tpu_torch.ops import p2_kernel as P2K
+    from webp_tpu_torch.ops import wavefront as WF
+
+    for h, w in ((48, 64), (64, 80), (48, 16)):
+        mbw, mbh = w // 16, h // 16
+        n = mbw * mbh
+        planes = [torch.as_tensor(p).cuda() for p in rgb_to_yuv420(
+            _images(1, h, w, 51)[0])]
+        lv, y2, modes, uvm, skip = WF.wavefront_encode_fn(mbw, mbh, 75)(
+            *planes)
+        plan = FP._single_plan(75, 0, 1, n, planes[0].device)
+        wire = P2K.phase2_pack(
+            *(p[None] for p in planes), modes[None], uvm[None],
+            torch.zeros((1, n), dtype=torch.bool, device="cuda"),
+            torch.zeros((1, n, 16), dtype=torch.uint8, device="cuda"),
+            plan[0], plan[3], 0.0, 1024)
+        wire = {k: v[0].cpu().numpy() for k, v in wire.items()}
+        got = FP.unpack_levels(wire["packed"], wire["esc_idx"],
+                               wire["esc_val"], int(wire["esc_cnt"]), n)
+        assert np.array_equal(got, lv.cpu().numpy())
+        assert np.array_equal(wire["y2"], y2.cpu().numpy())
+        assert np.array_equal(wire["skip"].astype(bool), skip.cpu().numpy())
+

@@ -188,6 +188,16 @@ def test_scans_reach_mux_animation_and_metrics():
             os.path.join("ops", "metrics.py")} <= rel
 
 
+def test_scans_reach_the_band_encoders_and_the_oracle():
+    """The isolation and environment scans cover the band encoders'
+    package and the wavefront oracle, with no exception for them."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {os.path.join("parallel", "__init__.py"),
+            os.path.join("parallel", "mesh.py"),
+            os.path.join("parallel", "exact.py"),
+            os.path.join("ops", "wavefront.py")} <= rel
+
+
 def test_forbidden_import_pattern_catches_offenders():
     """The isolation scan's own check: it flags each form of import it
     must, and none of the port's own."""

@@ -10,12 +10,15 @@ list overflowed the device's capacity is re-encoded by the exact host
 encoder (from host planes of the same import: sharp-YUV planes from the
 host converter sharpyuv/convert.py when the device imported with sharp
 YUV). encode_lossy_batch runs one batch; encode_lossy_stream pipelines a
-stream of batches (upload, compute and host tail overlapped).
+stream of batches (upload, compute and host tail overlapped), or, when
+given devices=, spreads them over several (parallel/exact.py). _get_fn
+is the exact-parity wavefront oracle (ops/wavefront.py).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 
 import numpy as np
 import torch
@@ -28,6 +31,30 @@ from .encode import LossyConfig, VP8Encoder
 def _resolve_device(device) -> torch.device:
     """None means the card; an explicit "cpu" runs the plain versions."""
     return torch.device("cuda" if device is None else device)
+
+
+@functools.lru_cache(maxsize=16)
+def _get_fn(mb_w: int, mb_h: int, quality: int):
+    """The exact-parity wavefront (ops/wavefront.py), kept for
+    differential tests."""
+    from ..ops.wavefront import wavefront_encode_fn
+
+    return wavefront_encode_fn(mb_w, mb_h, quality)
+
+
+def _mesh_devices(images, devices, sharp_yuv):
+    """The devices encode_lossy_stream spreads its batches over (the
+    reference's multi-device branch), or None for the single-device
+    stream. The branch is taken only when the caller names two or more
+    devices, the images are not sharp-YUV and their MB rows (after the
+    padding to whole macroblocks) divide evenly over the devices: on
+    several cards it is slower than one card's stream (ROADMAP queue 2),
+    so the reference's default of every visible device is not followed."""
+    if devices is None or len(devices) < 2 or sharp_yuv:
+        return None
+    if (images[0].shape[0] + 15) // 16 % len(devices):
+        return None
+    return [torch.device(d) for d in devices]
 
 
 def planeless(width: int, height: int, cfg: LossyConfig):
@@ -283,9 +310,9 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
                         partitions: int = 0, filter_strength: int = 60,
                         num_threads: int = 12, host_yuv: bool = None,
                         segments: int = 4, sns_strength: int = 50,
-                        sharp_yuv: bool = False, device=None):
+                        sharp_yuv: bool = False, device=None, devices=None):
     """Pipelined encode of a stream of same-sized images (counterpart of
-    the reference's encode_lossy_stream on one device).
+    the reference's encode_lossy_stream).
 
     Three overlapped stages, batch by batch:
       upload(i+1)  ||  device compute(i)  ||  fetch + entropy coding(i-1).
@@ -314,9 +341,20 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
     device from RGB, so it turns host_yuv off (as the reference's stream
     does).
 
-    The stream uses exactly the one device it is given: None means the
-    card, "cpu" runs the plain versions (no streams or pinned memory, the
-    same three stages). The reference's multi-device path is not ported.
+    The stream runs on the device it is given: None means the card,
+    "cpu" runs the plain versions (no streams or pinned memory, the same
+    three stages). devices (two or more; a device may repeat) asks for
+    the reference's multi-device branch instead: where the images are
+    not sharp-YUV and their MB rows divide evenly over the devices
+    (_mesh_devices), each batch goes through the exact band pipeline
+    over them (parallel/exact.py encode_lossy_mesh), one band per
+    device; otherwise the single-device stream runs on `device`. That
+    branch converts YUV on the devices and takes only quality, segments
+    and sns_strength (host_yuv, partitions, filter_strength and
+    num_threads are ignored, as in the reference), so its files are
+    encode_batch's. The reference takes the branch whenever it sees more
+    than one device; the port only when asked, since its band pipeline
+    is slower than one card's stream (ROADMAP queue 2).
     An image whose escape list
     overflows is re-encoded by the exact host encoder from the caller's
     unpadded image, as the reference's stream does (encode_lossy_batch
@@ -328,15 +366,28 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
     """
     from ..ops.fastpath import fast_encode_fn
 
+    if not images:
+        return []
+    h, w = images[0].shape[:2]
+    mesh = _mesh_devices(images, devices, sharp_yuv)
+    if mesh is not None:
+        from ..parallel.exact import encode_lossy_mesh
+
+        frames = []
+        for i in range(0, len(images), batch):
+            rgbs = np.stack([np.asarray(im)[..., :3]
+                             for im in images[i:i + batch]])
+            frames += encode_lossy_mesh(
+                pad_to_macroblocks(rgbs), quality=quality, segments=segments,
+                sns_strength=sns_strength, true_width=w, true_height=h,
+                devices=mesh)
+        return frames
     if sharp_yuv:
         host_yuv = False  # the refinement runs on the device from RGB
     elif host_yuv is None:
         host_yuv = True
-    if not images:
-        return []
     dev = _resolve_device(device)
     on_card = dev.type == "cuda"
-    h, w = images[0].shape[:2]
     H, W = (h + 15) // 16 * 16, (w + 15) // 16 * 16
     fn = fast_encode_fn(W // 16, H // 16, quality, segments, sns_strength,
                         sharp_yuv=sharp_yuv)

@@ -535,7 +535,9 @@ class _StepLoop:
         self._body()
         if graph and self.n_steps > 1:
             g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
+            # A capture stream of this card (torch.cuda.graph's default is
+            # one stream, made on whichever card was current at first use).
+            with torch.cuda.graph(g, stream=torch.cuda.Stream(self.dev)):
                 self._body()
             self.graph = g
             for _ in range(self.n_steps - 1):

@@ -23,6 +23,20 @@ SNS, rd_drop, skew 1 or 2, the trellis, the in-loop search, and the
 sharp-YUV import (ops/sharpyuv.py) in place of the plain one. The
 quantizer, lambda and rate tables are derived here from the port's own
 lossy/ copies and moved to the device by tables_from_numpy().
+
+The non-planar formulation (fast_encode_fn(..., planar=False), the
+reference's program without its planar path, and encode_band, the
+row-band unit of the band encoders in parallel/) runs phase 1 as PyTorch
+operations on macroblock-major tensors (_phase1: the reference's jnp code
+on every backend, since a band's first MB row may predict from a source
+halo, which kernel 2 does not take), the I4 search through kernel 3
+(_i4_dispatch) and phase 2 as the planar step loop with optional source
+or reconstruction halos (_phase2). Its tensors carry a leading batch
+axis where the reference vmaps. fast_encode_fn(..., planar=False) keeps
+phase 0 in PyTorch too (_mb_alphas2), as the reference's program does;
+the band encoders take their alphas from kernel 1 (band_stats). It is
+the reference's formulation, kept to hold the two equal; the planar
+program is the fast one.
 """
 
 from __future__ import annotations
@@ -41,8 +55,11 @@ from ..lossy.cost import (
     compute_level_cost_tables,
 )
 from ..lossy.encode import FIXED_COSTS_I16, FIXED_COSTS_UV, quality_to_qindex
+from . import dct
+from .quant import quantize
 
 BANDS = np.asarray(T.BANDS[:16])
+ZIGZAG = np.asarray(T.ZIGZAG)
 
 # Escape capacity per image, in BLOCKS: a block holding any |level| > 7
 # travels as raw int16[16] on the side (the nibble plane cannot carry it);
@@ -378,6 +395,47 @@ def _mb_quant(seg_map, q_idx, n_mb, dq_uv=None, tabs=None):
                  "uv_seg": lamuv_s, "mode_seg": lammd_s}, seg_rows)
 
 
+def _plan_tables(seg_map, seg_q, seg_beta, guv, sns, tabs):
+    """The segmented plan of a batch from its k-means results: per-image
+    quant rows (the UV rows at the dc/ac deltas), per-segment lambdas and
+    TLambdaSD. Returns (seg_map [B, n_mb], seg_q, seg_beta, qtabs
+    [B, 48, 16] (type*16 + seg*4 + param), lambdas {i16, uv, i4, mode:
+    [B, 4]}, tlsd4 [B, 4] or None, dq_uv [B, 2])."""
+    B = seg_q.shape[0]
+    dq_dc, dq_ac = _uv_deltas(guv, sns)                        # [B]
+    qi = seg_q.long()
+    seg_rows = {k: tabs.q[k][qi] for k in ("y1", "y2")}        # [B,4,4,16]
+    seg_rows["uv"] = _uv_rows_delta(seg_q, dq_dc, dq_ac, tabs)
+    lams = {"i16": tabs.lam_i16[qi], "uv": _lam_uv_of(seg_rows["uv"]),
+            "i4": tabs.lam_i4[qi], "mode": tabs.lam_mode[qi]}
+    tlsd4 = (((sns * tabs.qi4[qi]) >> 5).to(torch.float32)
+             if sns > 0 else None)
+    dq_uv_b = torch.stack([torch.full_like(dq_ac, dq_dc), dq_ac], dim=1)
+    qtabs = torch.stack([seg_rows[k] for k in ("y1", "y2", "uv")],
+                        dim=1).reshape(B, 48, 16).contiguous()
+    return seg_map, seg_q, seg_beta, qtabs, lams, tlsd4, dq_uv_b
+
+
+def _single_plan(quality, sns, B, n_mb, dev):
+    """The unsegmented plan (reference fastpath.py:1313-1347): segment
+    fields zero, the quality's one set of quant rows broadcast to every
+    segment and image, the lambdas and TLambdaSD static; the same tuple
+    as _plan_tables."""
+    qp, lambdas = rd_params(quality)
+    z4 = torch.zeros((B, 4), dtype=torch.int32, device=dev)
+    one = torch.stack([torch.stack(qp[k]) for k in ("y1", "y2", "uv")])
+    qtabs = one[:, None].expand(3, 4, 4, 16).reshape(48, 16).to(dev) \
+        .expand(B, 48, 16).contiguous()
+    lams = {k: torch.full((B, 4), float(lambdas[k]), device=dev)
+            for k in ("i16", "uv", "i4", "mode")}
+    tlsd4, _ = _tlsd_static(sns, lambdas["q_i4"], n_mb)
+    if tlsd4 is not None:
+        tlsd4 = tlsd4.to(dev).expand(B, 4).contiguous()
+    return (torch.zeros((B, n_mb), dtype=torch.int32, device=dev),
+            z4, z4, qtabs, lams, tlsd4,
+            torch.zeros((B, 2), dtype=torch.int32, device=dev))
+
+
 def _tlsd_static(sns: int, q_i4: int, n_mb: int):
     """(tlsd4 [4] f32 | None, tlsd scalar | None): TLambdaSD for the
     single-segment configuration (reference encode.go:1137)."""
@@ -434,6 +492,372 @@ def _unblock(x, size):
     lead = x.shape[:-3]
     return x.reshape(*lead, b, b, 4, 4).transpose(-3, -2).reshape(
         *lead, size, size)
+
+
+# ---------------------------------------------------------------------------
+# The non-planar formulation: macroblock-major tensors [B, n_mb, ...].
+# ---------------------------------------------------------------------------
+
+def _block(x, size):
+    """[..., S, S] -> [..., (S/4)^2, 4, 4] raster 4x4 blocks."""
+    b = size // 4
+    lead = x.shape[:-2]
+    return x.reshape(*lead, b, 4, b, 4).transpose(-3, -2).reshape(
+        *lead, b * b, 4, 4)
+
+
+def _mbs(plane, mb_w, mb_h, s):
+    """[B, H, W] -> [B, n_mb, s, s] macroblocks in raster order."""
+    B = plane.shape[0]
+    return plane.reshape(B, mb_h, s, mb_w, s).transpose(2, 3).reshape(
+        B, mb_w * mb_h, s, s)
+
+
+def _luma_pipe(src_b, pred_b, qp, with_recon=False):
+    """The I16 transform pipeline scored in the transform domain (phase
+    1). src/pred [..., 16, 4, 4] int32; qp {y1, y2: (q, iq, bias,
+    sharpen)} with per-MB rows [..., 1, 16] (the y2 block drops the row
+    axis). Returns (lv [..., 16, 16], y2lv [..., 16], disto_td [...] =
+    sum((coeff - dequant)^2)[, recon [..., 16, 4, 4]]); the VP8 FDCT has
+    an L2 gain of 4, so callers weight disto_td by 64."""
+    coeffs = dct.fdct4x4(src_b, pred_b)
+    flat = coeffs.reshape(*coeffs.shape[:-2], 16)
+    lead = flat.shape[:-2]
+    wht = dct.fwht4x4(flat[..., 0].reshape(*lead, 4, 4))
+    y2q = tuple(a[..., 0, :] for a in qp["y2"])
+    y2lv, y2dq = quantize(wht.reshape(*lead, 16), *y2q, ZIGZAG)
+    rec_dc = dct.wht4x4(y2dq.reshape(*lead, 4, 4)).reshape(*lead, 16)
+    lv, dq = quantize(flat, *qp["y1"], ZIGZAG, first=1)
+    dq = dq.clone()
+    dq[..., 0] = rec_dc
+    disto = ((flat - dq) ** 2).sum(dim=(-2, -1), dtype=torch.int32)
+    if not with_recon:
+        return lv, y2lv, disto
+    recon = (pred_b + dct.idct4x4(dq.reshape(coeffs.shape))).clamp(0, 255)
+    return lv, y2lv, disto, recon
+
+
+def _chroma_pipe(src_b, pred_b, qp):
+    """[..., 4, 4, 4] chroma blocks -> (lv [..., 4, 16], disto_td [...])."""
+    co = dct.fdct4x4(src_b, pred_b)
+    flat = co.reshape(*co.shape[:-2], 16)
+    lv, dq = quantize(flat, *qp["uv"], ZIGZAG)
+    return lv, ((flat - dq) ** 2).sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def _hist_alpha(coeffs):
+    """coeffs int32 [..., nb, 16] -> alpha [...] (DCT histogram
+    complexity)."""
+    from .p1_kernels import _hist_alpha_p
+
+    lead = coeffs.shape[:-2]
+    v = (coeffs.abs() >> 3).clamp(max=31).reshape(-1, coeffs.shape[-2] * 16)
+    return _hist_alpha_p(v.T).reshape(lead)
+
+
+def _mb_alphas2(Y, U, V, mb_w, mb_h):
+    """Per-MB (texture alpha, pre-mix UV alpha) [B, n_mb] each from int32
+    planes [B, H, W] (the compute_alphas analog; the UV component feeds
+    dq_uv_ac)."""
+    yb = _block(_mbs(Y, mb_w, mb_h, 16), 16)               # [B, n, 16, 4, 4]
+    uvb = torch.cat([_block(_mbs(P, mb_w, mb_h, 8), 8) for P in (U, V)],
+                    dim=2)                                 # [B, n, 8, 4, 4]
+
+    def alpha(blocks):
+        n = blocks.shape[-3] * 16
+        dc = torch.round(blocks.sum(dim=(-3, -2, -1)).to(torch.float32) / n)
+        co = dct.fdct4x4(blocks, dc.to(torch.int32)[..., None, None, None])
+        return _hist_alpha(co.reshape(*co.shape[:-2], 16))
+
+    luma, uv = alpha(yb), alpha(uvb)
+    return (255 - ((3 * luma + uv + 2) >> 2)).clamp(0, 255), uv
+
+
+def _mb_alphas(Y, U, V, mb_w, mb_h):
+    """Per-MB texture alphas [B, n_mb]."""
+    return _mb_alphas2(Y, U, V, mb_w, mb_h)[0]
+
+
+def _alpha_histo(alphas):
+    """[B, n_mb] alphas -> [B, 256] int64 histograms."""
+    h = torch.zeros((alphas.shape[0], 256), dtype=torch.int64,
+                    device=alphas.device)
+    return h.scatter_add_(1, alphas.long(),
+                          torch.ones_like(alphas, dtype=torch.int64))
+
+
+def _segment_plan_device(Y, U, V, mb_w, mb_h, quality, sns_strength,
+                         num_segs=4):
+    """Returns (seg_map [B, n_mb] i32, q_idx [B, 4] i32, beta [B, 4] i32,
+    global_uv [B] i32, the mean pre-mix UV alpha)."""
+    from .phase1p import plan_segments_planar
+
+    return plan_segments_planar(_mb_alphas2(Y, U, V, mb_w, mb_h), Y.shape[0],
+                                mb_w * mb_h, quality, sns_strength, num_segs)
+
+
+def _mb_rows(plan):
+    """A plan's per-MB quant rows, lambdas and TLambdaSD (the reference's
+    _mb_quant and _tlsd_from_seg outputs): (qp {y1/y2/uv: 4 x [B, n_mb, 1,
+    16]}, lambdas {i16, uv, mode: [B, n_mb]}, tlsd [B, n_mb] or None)."""
+    seg_map, _, _, qtabs, lams, tlsd4, _ = plan
+    B = seg_map.shape[0]
+    si = seg_map.long()
+    rows = qtabs.reshape(B, 3, 4, 4, 16).transpose(1, 2)   # [B, seg, t, p, 16]
+    per = rows[torch.arange(B, device=si.device)[:, None], si]
+    qp = {k: tuple(per[:, :, t, p, None, :] for p in range(4))
+          for t, k in enumerate(("y1", "y2", "uv"))}
+    lam = {k: torch.gather(lams[k], 1, si) for k in ("i16", "uv", "mode")}
+    tlsd = torch.gather(tlsd4, 1, si) if tlsd4 is not None else None
+    return qp, lam, tlsd
+
+
+def _mb_contexts(plane, s, halo, above):
+    """Source-pixel (top [B, n, s], left [B, n, s], corner [B, n]) context
+    per MB of an s-sized grid; the first MB row's top row and corners come
+    from halo [B, W] when `above`, else zero (masked by has_top)."""
+    B, H, W = plane.shape
+    gh, gw = H // s, W // s
+    g = plane.reshape(B, gh, s, gw, s)
+    bottom = g[:, :, s - 1]                                 # [B, gh, gw, s]
+    right = g[..., s - 1].transpose(2, 3)                   # [B, gh, gw, s]
+    row0 = plane.new_zeros((B, 1, gw, s))
+    tl0 = plane.new_zeros((B, 1, gw))
+    if halo is not None and above:
+        halo = halo.to(plane.dtype)
+        row0 = halo.reshape(B, 1, gw, s)
+        tl0[:, 0, 1:] = halo[:, s - 1::s][:, :gw - 1]
+    top = torch.cat([row0, bottom[:, :-1]], dim=1)
+    left = torch.cat([plane.new_zeros((B, gh, 1, s)), right[:, :, :-1]],
+                     dim=2)
+    br = g[:, :, s - 1, :, s - 1]                           # [B, gh, gw]
+    tl = torch.cat([tl0, torch.nn.functional.pad(br[:, :-1, :-1], (1, 0))],
+                   dim=1)
+    return top.reshape(B, -1, s), left.reshape(B, -1, s), tl.reshape(B, -1)
+
+
+def _phase1(Y, U, V, qp, lambdas, mb_w, mb_h, halos=None, has_above=False,
+            tlsd=None):
+    """Fully parallel I16 and UV mode search with source-pixel context.
+
+    Y, U, V: int32 [B, H, W] planes; qp, lambdas, tlsd: _mb_rows of the
+    plan. halos: optional (hy [B, W], hu, hv [B, W/2]) source rows of the
+    band above (row-band sharding); with has_above the first MB row
+    predicts from them. Returns (modes [B, n_mb] u8, uvmodes [B, n_mb]
+    u8, score [B, n_mb] f32): the I16 mode chosen at lambda_i16, its total
+    rescored at lambda_mode (the I4-vs-I16 split scale), and the chroma
+    mode chosen at lambda_uv on the joint U+V score."""
+    from .metrics import WEIGHT_Y, _hadamard4
+
+    B = Y.shape[0]
+    n_mb = mb_w * mb_h
+    dev = Y.device
+    above = halos is not None and bool(has_above)
+    k = torch.arange(n_mb, device=dev)
+    has_top = (k >= mb_w) | above
+    has_left = (k % mb_w) > 0
+    hy, hu, hv = halos if halos is not None else (None, None, None)
+    rt = device_tables(str(dev)).rt
+
+    topY, leftY, tlY = _mb_contexts(Y, 16, hy, above)
+    src_b = _block(_mbs(Y, mb_w, mb_h, 16), 16)            # [B, n, 16, 4, 4]
+    preds = _preds4(16, topY, leftY, tlY, has_top, has_left)
+    if tlsd is not None:
+        wt = torch.as_tensor(WEIGHT_Y, device=dev)
+
+        def wha(x):
+            return (wt * _hadamard4(x).abs()).sum(dim=(-2, -1),
+                                                  dtype=torch.int32)
+        ha_src = wha(src_b)
+    best_score = torch.full((B, n_mb), float("inf"), device=dev)
+    best_rate = torch.zeros((B, n_mb), device=dev)
+    best_D = torch.zeros((B, n_mb), device=dev)
+    best_mode = torch.zeros((B, n_mb), dtype=torch.uint8, device=dev)
+    for m in range(4):
+        res = _luma_pipe(src_b, _block(preds[:, :, m], 16), qp,
+                         with_recon=tlsd is not None)
+        lv, y2lv, disto = res[:3]
+        rate = (approx_block_rate(lv, 1, 0, rt).sum(dim=-1, dtype=torch.int32)
+                + approx_block_rate(y2lv, 0, 1, rt) + int(FIXED_COSTS_I16[m]))
+        D = 64.0 * disto.to(torch.float32)
+        if tlsd is not None:
+            # Perceptual texture distortion (reference TDisto16x16 and
+            # TLambdaSD, encode_analysis.go:1180).
+            td = ((wha(res[3]) - ha_src).abs() >> 5).sum(dim=-1,
+                                                         dtype=torch.int32)
+            D = D + tlsd * td.to(torch.float32)
+        score = rate.to(torch.float32) * lambdas["i16"] + D
+        better = score < best_score
+        best_score = torch.where(better, score, best_score)
+        best_rate = torch.where(better, rate.to(torch.float32), best_rate)
+        best_D = torch.where(better, D, best_D)
+        best_mode = torch.where(better, m, best_mode)
+    best_score = best_rate * lambdas["mode"] + best_D
+
+    planes = []
+    for P, h in ((U, hu), (V, hv)):
+        top, left, tl = _mb_contexts(P, 8, h, above)
+        planes.append((_block(_mbs(P, mb_w, mb_h, 8), 8),
+                       _preds4(8, top, left, tl, has_top, has_left)))
+    best_uv_score = torch.full((B, n_mb), float("inf"), device=dev)
+    best_uv = torch.zeros((B, n_mb), dtype=torch.uint8, device=dev)
+    for m in range(4):
+        rate = torch.full((B, n_mb), int(FIXED_COSTS_UV[m]),
+                          dtype=torch.int32, device=dev)
+        disto = torch.zeros((B, n_mb), dtype=torch.int32, device=dev)
+        for src, preds_c in planes:
+            lv, d = _chroma_pipe(src, _block(preds_c[:, :, m], 8), qp)
+            disto = disto + d
+            rate = rate + approx_block_rate(lv, 0, 2, rt).sum(
+                dim=-1, dtype=torch.int32)
+        score = (rate.to(torch.float32) * lambdas["uv"]
+                 + 64.0 * disto.to(torch.float32))
+        better = score < best_uv_score
+        best_uv_score = torch.where(better, score, best_uv_score)
+        best_uv = torch.where(better, m, best_uv)
+    return best_mode, best_uv, best_score
+
+
+def _i4_dispatch(Y, plan, i16_score, mb_w, mb_h, allow_tr=False):
+    """The I4 search of a plan through kernel 3 (ops/i4.py i4_search, one
+    launch for the batch; its plain version for CPU tensors). A failure
+    to build or launch the kernel raises: there is no fallback. The
+    reference's segmented and unsegmented forms both arrive as a plan
+    (qtabs, per-segment lambdas); allow_tr lifts the ban on the
+    above-right-reading modes in the rightmost subblock column (skew 2).
+    Returns (is_i4 [B, n_mb] bool, modes [B, n_mb, 16] u8, i4_score)."""
+    from . import i4 as I4
+
+    seg_map, _, _, qtabs, lams, tlsd4, _ = plan
+    return I4.i4_search(Y, seg_map, qtabs[:, :16].contiguous(), lams["i4"],
+                        lams["mode"], tlsd4, i16_score, mb_w, mb_h,
+                        allow_tr=allow_tr)
+
+
+def _phase2(Y, U, V, modes, uvmodes, mb_w, mb_h, seg, rd_drop=0.0,
+            halos=None, has_above=False, i4=None, sk=1):
+    """Exact levels under the true reconstructed context: the planar step
+    loop (ops/planar.py phase2_planar; the reference holds its own planar
+    and non-planar forms equal, tests/test_planar.py), its steps replayed
+    from a CUDA graph on the card.
+
+    seg: (seg_map [B, n_mb], seg_rows {y1/y2/uv: [B, 4, 4, 16]}); halos
+    with has_above: the rows above the band's first MB row (the source's
+    in encode_band, the reconstruction's in parallel/exact.py), skew 1.
+    Returns (lv24 [B, n_mb, 24, 16] i16, y2 [B, n_mb, 16] i16, bottom,
+    right [B, n_mb, 16], bottom_u, bottom_v [B, n_mb, 8])."""
+    from .planar import phase2_planar
+
+    out = phase2_planar(Y, U, V, modes, uvmodes, None, mb_w, mb_h,
+                        rd_drop=rd_drop, seg=seg, i4=i4, sk=sk,
+                        graph=Y.device.type == "cuda", halos=halos,
+                        has_above=has_above)
+    return out[:4] + out[-2:]
+
+
+def _seg_rows(qtabs):
+    """qtabs [B, 48, 16] -> {y1/y2/uv: [B, 4, 4, 16]}."""
+    return dict(zip(("y1", "y2", "uv"),
+                    qtabs.reshape(qtabs.shape[0], 3, 4, 4, 16).unbind(1)))
+
+
+def _encode_planned(Y, U, V, plan, mb_w, mb_h, i4_blocks, rd_drop, esc_cap,
+                    sk=1, halos=None, has_above=False):
+    """Phases 1 and 2 and the pack of the non-planar formulation, on the
+    plan of phase 0. With has_above the band's first MB row stays I16 (it
+    predicts from the source halo; I4's 4x4 modes lean too hard on exact
+    context there). Returns (field dict [B, ...], lv24)."""
+    seg_map, seg_q, seg_beta, qtabs, lams, _, dq_uv = plan
+    B = Y.shape[0]
+    n_mb = mb_w * mb_h
+    qp, lam, tlsd = _mb_rows(plan)
+    modes, uvmodes, i16_score = _phase1(Y, U, V, qp, lam, mb_w, mb_h,
+                                        halos=halos, has_above=has_above,
+                                        tlsd=tlsd)
+    if i4_blocks:
+        is_i4, i4_modes, _ = _i4_dispatch(Y, plan, i16_score, mb_w, mb_h,
+                                          allow_tr=sk == 2)
+        if has_above:
+            is_i4 = is_i4.clone()
+            is_i4[:, :mb_w] = False
+        i4 = (is_i4, i4_modes)
+    else:
+        is_i4 = torch.zeros((B, n_mb), dtype=torch.bool, device=Y.device)
+        i4_modes = torch.zeros((B, n_mb, 16), dtype=torch.uint8,
+                               device=Y.device)
+        i4 = None
+    lv24, y2 = _phase2(Y, U, V, modes, uvmodes, mb_w, mb_h,
+                       (seg_map, _seg_rows(qtabs)), rd_drop=rd_drop,
+                       halos=halos, has_above=has_above, i4=i4, sk=sk)[:2]
+    imodes = torch.where(
+        is_i4[..., None], i4_modes,
+        torch.cat([modes[..., None], modes.new_zeros((B, n_mb, 15))], dim=-1))
+    out = dict(wire_from_levels(lv24, y2, esc_cap), modes=modes,
+               uvmodes=uvmodes, is_i4=is_i4, imodes=imodes,
+               seg_map=seg_map.to(torch.uint8), seg_q=seg_q,
+               seg_beta=seg_beta, dq_uv=dq_uv)
+    return out, lv24
+
+
+def band_stats(Y, U, V, mb_w, mb_h):
+    """A band's share of the image-global segment statistics: (alphas
+    [b, n_mb], alpha histograms [b, 256], UV-alpha sums [b]) of planes
+    [b, H, W] (values 0-255, any integer type), the alphas from kernel 1
+    (ops/phase1p.py alphas_planar; equal to _mb_alphas2's). The band
+    encoders sum the histograms and sums over the bands (every term an
+    integer, so the order does not matter)."""
+    from . import phase1p as P1
+
+    src_rows, _ = P1.build_src(*(p.to(torch.uint8) for p in (Y, U, V)),
+                               mb_w, mb_h)
+    alphas, uv = P1.alphas_planar(src_rows, Y.shape[0], mb_w * mb_h)
+    return alphas, _alpha_histo(alphas), uv.sum(dim=1, dtype=torch.int64)
+
+
+def level_histogram(lv24):
+    """|level| histogram [B, 16] of lv24 [B, ...] with jnp.histogram's
+    rule for bins=16, range=(0, 16): 16 lands in the last bin, larger
+    values are dropped."""
+    B = lv24.shape[0]
+    v = lv24.abs().reshape(B, -1).long()
+    return torch.zeros((B, 16), dtype=torch.int64, device=lv24.device) \
+        .scatter_add_(1, v.clamp(max=15), (v <= 16).long())
+
+
+def encode_band(Y, U, V, hy, hu, hv, has_above, mb_w, mb_h, esc_cap,
+                quality, segments=4, sns_strength=50, i4_blocks=True,
+                stats=None, rd_drop=1024.0):
+    """One row band of the flagship encoder with cross-band source halos,
+    for b images of the band (the multi-device sharding unit): device
+    segmentation, I16 and I4 search, and the closed-loop wavefront.
+
+    Y [b, Hb, W], U, V [b, Hb/2, W/2] planes; hy [b, W], hu, hv [b, W/2]
+    the source rows above the band (zeros on the top band); has_above:
+    whether there is a band above (bool). stats: (alphas [b, n_mb],
+    histograms [b, 256], UV-alpha sums [b], MB count) with the
+    histograms, sums and count summed over every band of the image (the
+    mesh's sum, the reference's psum_axis), so every band derives the
+    image's plan; None plans from this band alone (band_stats). Returns
+    the field dict plus "hist" [b, 16], the |level| histogram."""
+    Y, U, V = (p.to(torch.int32) for p in (Y, U, V))
+    B = Y.shape[0]
+    n_mb = mb_w * mb_h
+    sns = max(0, int(sns_strength))
+    if segments > 1:
+        if stats is None:
+            stats = band_stats(Y, U, V, mb_w, mb_h) + (n_mb,)
+        alphas, histo, uv_sum, tot_mb = stats
+        plan = _plan_tables(
+            *_plan_from_histo(histo, alphas, quality, sns_strength, segments),
+            (uv_sum // tot_mb).to(torch.int32), sns,
+            device_tables(str(Y.device)))
+    else:
+        plan = _single_plan(quality, sns, B, n_mb, Y.device)
+    out, lv24 = _encode_planned(Y, U, V, plan, mb_w, mb_h, i4_blocks,
+                                rd_drop, esc_cap, halos=(hy, hu, hv),
+                                has_above=bool(has_above))
+    out["hist"] = level_histogram(lv24)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -588,14 +1012,16 @@ class FastEncoder:
     fn.rgb_blob(rgbs [B, H, W, 3] u8), fn.rgbp_blob(rgbps [B, 3, H, W] u8)
     and fn.blob(Yb, Ub, Vb) (YUV 4:2:0 planes) run the whole device program
     on the inputs' device and return the blob chunks (see _blobify);
-    fn(Yb, Ub, Vb) returns the field dict.
+    fn(Yb, Ub, Vb) and fn.rgb(rgbs) return the field dict.
     fn.blob_spec, fn.esc_cap and fn.n_mb describe the output;
     fn.sharp_yuv says whether the RGB entries import with sharp YUV.
+    With planar=False every entry runs encode_one, the non-planar
+    formulation, in place of the batched planar program.
     """
 
     def __init__(self, mb_w, mb_h, quality, segments, sns_strength,
                  i4_blocks, rd_drop, sharp_yuv=False, sk=1, trellis=False,
-                 i4_mode_search=False):
+                 i4_mode_search=False, planar=True):
         self.mb_w, self.mb_h = mb_w, mb_h
         self.quality = int(quality)
         self.segments = int(segments)
@@ -610,48 +1036,18 @@ class FastEncoder:
         self.use_segments = self.segments > 1 and self.n_mb >= 4
         self.esc_cap = max(1024, ESC_BLOCKS_PER_MB * self.n_mb)
         self.blob_spec = blob_spec_of(self.n_mb, self.esc_cap)
+        self.planar = bool(planar)
 
     def _segment_plan(self, src_rows, B, tabs):
         """Phase 0 of the segmented configuration: alphas (kernel 1), the
-        k-means plans and the per-image quant rows and lambdas. Returns
-        (seg_map [B, n_mb], seg_q, seg_beta, qtabs [B, 48, 16], lambdas
-        {i16, uv, i4, mode: [B, 4]}, tlsd4 [B, 4] or None, dq_uv [B, 2])."""
+        k-means plans and the per-image quant rows and lambdas (the
+        _plan_tables tuple)."""
         from . import phase1p as P1
 
-        sns = self.sns
         alphas = P1.alphas_planar(src_rows, B, self.n_mb)
-        seg_map, seg_q, seg_beta, guv = P1.plan_segments_planar(
-            alphas, B, self.n_mb, self.quality, sns, self.segments)
-        dq_dc, dq_ac = _uv_deltas(guv, sns)                    # [B]
-        qi = seg_q.long()
-        seg_rows = {k: tabs.q[k][qi] for k in ("y1", "y2")}    # [B,4,4,16]
-        seg_rows["uv"] = _uv_rows_delta(seg_q, dq_dc, dq_ac, tabs)
-        lams = {"i16": tabs.lam_i16[qi], "uv": _lam_uv_of(seg_rows["uv"]),
-                "i4": tabs.lam_i4[qi], "mode": tabs.lam_mode[qi]}
-        tlsd4 = (((sns * tabs.qi4[qi]) >> 5).to(torch.float32)
-                 if sns > 0 else None)
-        dq_uv_b = torch.stack([torch.full_like(dq_ac, dq_dc), dq_ac], dim=1)
-        qtabs = torch.stack([seg_rows[k] for k in ("y1", "y2", "uv")],
-                            dim=1).reshape(B, 48, 16).contiguous()
-        return seg_map, seg_q, seg_beta, qtabs, lams, tlsd4, dq_uv_b
-
-    def _single_plan(self, B, dev):
-        """The unsegmented configuration (reference fastpath.py:1313-1347):
-        segment fields zero, the quality's one set of quant rows broadcast
-        to every segment and image, the lambdas and TLambdaSD static."""
-        qp, lambdas = rd_params(self.quality)
-        z4 = torch.zeros((B, 4), dtype=torch.int32, device=dev)
-        one = torch.stack([torch.stack(qp[k]) for k in ("y1", "y2", "uv")])
-        qtabs = one[:, None].expand(3, 4, 4, 16).reshape(48, 16).to(dev) \
-            .expand(B, 48, 16).contiguous()
-        lams = {k: torch.full((B, 4), float(lambdas[k]), device=dev)
-                for k in ("i16", "uv", "i4", "mode")}
-        tlsd4, _ = _tlsd_static(self.sns, lambdas["q_i4"], self.n_mb)
-        if tlsd4 is not None:
-            tlsd4 = tlsd4.to(dev).expand(B, 4).contiguous()
-        return (torch.zeros((B, self.n_mb), dtype=torch.int32, device=dev),
-                z4, z4, qtabs, lams, tlsd4,
-                torch.zeros((B, 2), dtype=torch.int32, device=dev))
+        return _plan_tables(*P1.plan_segments_planar(
+            alphas, B, self.n_mb, self.quality, self.sns, self.segments),
+            self.sns, tabs)
 
     def part1_batched(self, Yb, Ub, Vb):
         """Phase 0 (alphas, segment plan; segmented configuration only),
@@ -666,7 +1062,7 @@ class FastEncoder:
         src_rows, srcs = P1.build_src(Yb, Ub, Vb, mb_w, mb_h)
         seg_map, seg_q, seg_beta, qtabs, lams, tlsd4, dq_uv_b = (
             self._segment_plan(src_rows, B, tabs) if self.use_segments
-            else self._single_plan(B, Yb.device))
+            else _single_plan(self.quality, self.sns, B, n_mb, Yb.device))
         modes, uvmodes, i16_score = P1.phase1_planar(
             src_rows, srcs, qtabs, lams["i16"], lams["uv"], tlsd4, seg_map,
             mb_w, mb_h, lam_mode4=lams["mode"])
@@ -701,11 +1097,9 @@ class FastEncoder:
             return P2K.phase2_pack(Yb, Ub, Vb, modes, uvmodes, is_i4,
                                    i4_modes, seg_map, qtabs, self.rd_drop,
                                    self.esc_cap)
-        B = Yb.shape[0]
         # The unsegmented configuration's rows and lambdas are the same in
         # every segment, so one segmented call covers both.
-        seg_rows = dict(zip(("y1", "y2", "uv"),
-                            qtabs.reshape(B, 3, 4, 4, 16).unbind(1)))
+        seg_rows = _seg_rows(qtabs)
         search = None
         if self.search:
             search = (None, lams["i4"], lams["i16"], lams["uv"],
@@ -723,8 +1117,32 @@ class FastEncoder:
 
     def __call__(self, Yb, Ub, Vb):
         """Yb [B, H, W], Ub/Vb [B, H/2, W/2] u8 -> field dict [B, ...]."""
+        if not self.planar:
+            return self.encode_one(Yb, Ub, Vb)
         p1 = self.part1_batched(Yb, Ub, Vb)
         return self.pack(self.phase2(Yb, Ub, Vb, p1), p1)
+
+    def encode_one(self, Yb, Ub, Vb):
+        """The non-planar formulation (the reference's encode_one, over
+        the batch): phase 0 and phase 1 as PyTorch operations
+        (_segment_plan_device, _phase1), the I4 search through kernel 3
+        (_i4_dispatch, one launch for the batch) and phase 2 as the step
+        loop (_phase2), then the pack. Same field dict and blob layout as
+        the planar program. As the reference's, it honours the segments,
+        SNS, I4, rd_drop, the skew and the import, and ignores the trellis
+        and the in-loop search."""
+        Y, U, V = (p.to(torch.int32) for p in (Yb, Ub, Vb))
+        B = Y.shape[0]
+        if self.use_segments:
+            plan = _plan_tables(*_segment_plan_device(
+                Y, U, V, self.mb_w, self.mb_h, self.quality, self.sns,
+                self.segments), self.sns, device_tables(str(Y.device)))
+        else:
+            plan = _single_plan(self.quality, self.sns, B, self.n_mb,
+                                Y.device)
+        return _encode_planned(Y, U, V, plan, self.mb_w, self.mb_h,
+                               self.i4_blocks, self.rd_drop, self.esc_cap,
+                               sk=self.sk)[0]
 
     def pack(self, wire, p1):
         """The wire fields of phase2 plus the per-MB side fields of p1 ->
@@ -761,9 +1179,13 @@ class FastEncoder:
 
         return devyuv.rgb_to_yuv420(rgbs)
 
+    def rgb(self, rgbs):
+        """rgbs: uint8 [B, H, W, 3] on the device -> field dict."""
+        return self(*self.to_yuv(rgbs))
+
     def rgb_blob(self, rgbs):
         """rgbs: uint8 [B, H, W, 3] on the device -> blob chunks."""
-        return _blobify(self(*self.to_yuv(rgbs)))
+        return _blobify(self.rgb(rgbs))
 
     def rgbp_blob(self, rgbps):
         """rgbps: uint8 [B, 3, H, W] planes on the device -> blob chunks."""
@@ -779,7 +1201,7 @@ def fast_encode_fn(mb_w: int, mb_h: int, quality: int, segments: int = 1,
                    sns_strength: int = 0, i4_blocks: bool = True,
                    sharp_yuv: bool = False, rd_drop: float = 1024.0,
                    sk: int = 1, trellis: bool = False,
-                   i4_mode_search: bool = False):
+                   i4_mode_search: bool = False, planar: bool = True):
     """The batched encoder for one geometry (cached). rd_drop enables the
     trellis-lite RD dropout inside the closed loop (ops/planar.py
     quantize_p); sharp_yuv imports RGB with the sharp-YUV refinement;
@@ -788,13 +1210,15 @@ def fast_encode_fn(mb_w: int, mb_h: int, quality: int, segments: int = 1,
     requantizes the I4 subblocks with the trellis in the loop; and
     i4_mode_search re-runs the I4 and UV searches and the I16-vs-I4 split
     in the loop on exact rates (methods 5 and 6 set sk=2 and trellis, 6
-    also the search)."""
+    also the search). planar=False runs the non-planar formulation
+    (FastEncoder.encode_one; the reference's program with its planar path
+    switched off), which ignores the trellis and the search."""
     if sk not in (1, 2):
         raise ValueError(f"fast_encode_fn: skew {sk} (1 or 2)")
     return _fast_encode_fn(int(mb_w), int(mb_h), int(quality), int(segments),
                            int(sns_strength), bool(i4_blocks), float(rd_drop),
                            bool(sharp_yuv), int(sk), bool(trellis),
-                           bool(i4_mode_search))
+                           bool(i4_mode_search), bool(planar))
 
 
 @functools.lru_cache(maxsize=8)

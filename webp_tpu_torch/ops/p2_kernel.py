@@ -50,10 +50,10 @@ def phase2_pack_plain(Y, U, V, modes, uvmodes, is_i4, i4_modes, seg_map,
     B, H, W = Y.shape
     seg_rows = dict(zip(("y1", "y2", "uv"),
                         qtab.reshape(B, 3, 4, 4, 16).unbind(1)))
-    lv24, y2, _, _ = phase2_planar(
+    lv24, y2 = phase2_planar(
         Y, U, V, modes, uvmodes, None, W // 16, H // 16, rd_drop=rd_drop,
         seg=(seg_map, seg_rows),
-        i4=(is_i4, i4_modes) if bool(is_i4.any()) else None)
+        i4=(is_i4, i4_modes) if bool(is_i4.any()) else None)[:2]
     return wire_from_levels(lv24, y2, esc_cap)
 
 

@@ -723,7 +723,7 @@ def _lane_lam(lam_b, B, mb_h):
 
 def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
                   seg=None, i4=None, sk=1, trellis=False, i4_search=None,
-                  wire_pack=None, graph=False):
+                  wire_pack=None, graph=False, halos=None, has_above=False):
     """Batched closed-loop reconstruction wavefront, a Python step loop
     over the n_steps = mb_w + sk * (mb_h - 1) anti-diagonals (step t,
     lane (b, y) holds MB x = t - sk * y).
@@ -753,10 +753,16 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
     its outputs and carry through static buffers indexed by a step
     counter on the device, so the graph issues the same operations as
     the loop, without the host's cost of launching each of them.
+    halos: (hy [B, W], hu [B, W/2], hv [B, W/2]) pixel rows above each
+    image's first MB row (a row band of a larger image, ops/fastpath.py
+    encode_band and parallel/): with has_above True the first MB row
+    predicts from them (its top row and top-left corners) instead of the
+    127/129 edge fills; skew 1 only, as the reference's _phase2.
     Returns (lv24 [B, n_mb, 24, 16] i16, y2 [B, n_mb, 16] i16,
     bottom [B, n_mb, 16], right [B, n_mb, 16][, i4_modes [B, n_mb, 16]
     u8, is_i4 [B, n_mb] bool with i4_search][, uvmodes [B, n_mb] u8 with
-    its UV search]).
+    its UV search], bottom_u [B, n_mb, 8], bottom_v [B, n_mb, 8]): the
+    bottom rows and right columns are the reconstruction's.
 
     The reference's wire_pack (packing in the skewed layout) is not
     ported and raises NotImplementedError.
@@ -766,6 +772,9 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
             "phase2_planar: wire_pack (packing in the skewed layout) is not "
             "ported; the levels are packed after the unskew "
             "(fastpath._pack_levels)")
+    if halos is not None and sk != 1:
+        raise ValueError("phase2_planar: halos need skew 1 (the above-right "
+                         "strip of a band's first row is not carried)")
     dev = Y.device
     B = Y.shape[0]
     N = B * mb_h
@@ -773,6 +782,8 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
     if i4 is None:
         i4_search = None
     yy = torch.arange(mb_h, dtype=torch.int32, device=dev).repeat(B)
+    above = halos is not None and bool(has_above)
+    lane0 = yy == 0
 
     def skew(a):
         return _skew_b(a, mb_w, mb_h, n_steps, sk)
@@ -794,6 +805,20 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
     if i4 is not None:
         xs["i4"] = skew(i4[0].reshape(B, mb_h, mb_w))
         xs["i4m"] = skew(i4[1].reshape(B, mb_h, mb_w, 16))
+    if above:
+        # Step t's lane (b, 0) holds MB (t, 0): its top row is the halo's
+        # segment t, its corner the halo pixel left of that segment.
+        for p, h, s in (("y", halos[0], 16), ("u", halos[1], 8),
+                        ("v", halos[2], 8)):
+            h = h.to(dev, torch.int32).reshape(B, mb_w, s)
+            top = torch.zeros((n_steps, s, B, mb_h), dtype=torch.int32,
+                              device=dev)
+            top[:mb_w, :, :, 0] = h.permute(1, 2, 0)
+            corner = torch.zeros((n_steps, B, mb_h), dtype=torch.int32,
+                                 device=dev)
+            corner[1:mb_w, :, 0] = h[:, :-1, s - 1].T
+            xs["h" + p] = top.reshape(n_steps, s, N)
+            xs["ht" + p] = corner.reshape(n_steps, N)
     use_tr = trellis and i4 is not None
     search = i4_search is not None
     uv_search = search and len(i4_search) >= 4
@@ -824,11 +849,19 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
         skew 1, t-2 at skew 2 (lane-shifted down one MB row)."""
         return _shift1_p(c[name + ("2" if sk == 2 else "1")])
 
+    def above_ctx(x, p, top, tl):
+        """A band's first MB row takes its top row and corner from the
+        halo."""
+        if not above:
+            return top, tl
+        return (torch.where(lane0[None, :], x["h" + p], top),
+                torch.where(lane0, x["ht" + p], tl))
+
     def step(xcol, x, c):
         """One anti-diagonal: carry c (dict) -> (new carry, outputs)."""
         valid = (xcol >= 0) & (xcol < mb_w)
         has_left = valid & (xcol > 0)
-        has_top = valid & (yy > 0)
+        has_top = valid & ((yy > 0) | lane0) if above else valid & (yy > 0)
         if seg is not None:
             st = x["seg"]
             qp_t = {k: tuple(_seg_select_p(rows4[k][:, i], st)
@@ -837,8 +870,9 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
             st = None
             qp_t = qp_p
 
-        topY = older(c, "By")
-        leftY, tlY = c["Ry"], _shift1_p(c["Cy3" if sk == 2 else "Cy2"])
+        topY, tlY = above_ctx(x, "y", older(c, "By"),
+                              _shift1_p(c["Cy3" if sk == 2 else "Cy2"]))
+        leftY = c["Ry"]
         predsY = preds4_p(16, topY, leftY, tlY, has_top, has_left)
         predY_b = plane_to_blocks_p(sel_mode(predsY, x["m"]), 16)
         src_y = x["y"].to(torch.int32).reshape(16, 4, 4, N)
@@ -907,10 +941,10 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
         else:
             ii_mb = torch.zeros((N,), dtype=torch.bool, device=dev)
 
-        topU, topV = older(c, "Bu"), older(c, "Bv")
         cU, cV = ("Cu3", "Cv3") if sk == 2 else ("Cu2", "Cv2")
-        leftU, tlU = c["Ru"], _shift1_p(c[cU])
-        leftV, tlV = c["Rv"], _shift1_p(c[cV])
+        topU, tlU = above_ctx(x, "u", older(c, "Bu"), _shift1_p(c[cU]))
+        topV, tlV = above_ctx(x, "v", older(c, "Bv"), _shift1_p(c[cV]))
+        leftU, leftV = c["Ru"], c["Rv"]
         predsU = preds4_p(8, topU, leftU, tlU, has_top, has_left)
         predsV = preds4_p(8, topV, leftV, tlV, has_top, has_left)
         src_u = x["u"].to(torch.int32).reshape(4, 4, 4, N)
@@ -995,7 +1029,8 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
             new["Vt1"], new["Vt2"], new["Vl"] = vt2_new, c["Vt1"], vl2_new
             ys_extra.append(uvm_out)
         lv24 = torch.cat([lv, lvu, lvv], dim=0).to(torch.int16)
-        ys = [lv24, y2lv.to(torch.int16), rYp[15], rYp[:, 15]] + ys_extra
+        ys = ([lv24, y2lv.to(torch.int16), rYp[15], rYp[:, 15]] + ys_extra
+              + [rU[7], rV[7]])
         return new, ys
 
     z16 = torch.zeros((16, N), dtype=torch.int32, device=dev)
@@ -1039,7 +1074,9 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
     body()
     if graph and n_steps > 1:
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        # A capture stream of Y's own card (torch.cuda.graph's default is
+        # one stream, made on whichever card was current at its first use).
+        with torch.cuda.graph(g, stream=torch.cuda.Stream(dev)):
             body()
         for _ in range(n_steps - 1):
             g.replay()
