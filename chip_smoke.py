@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
   1. The card's name and power limit (nvidia-smi) and torch's device name.
   2. Builds the four CUDA kernels (nvcc, sm_90a) and the host libraries
      (entropy coder and YUV importer; the VP8 and VP8L decoders and the
-     upsampler; the VP8L encoder's coder and searches; g++) from the
+     upsampler; the VP8L encoder's coder and searches; the PNG reader's
+     row unfilter; g++) from the
      checkout's sources, all compilers at once, and prints each
      kernel's registers, shared memory and spills as ptxas reported them.
   3. The main path, counted: webp_tpu_torch.encode_batch on B=16 synthetic
@@ -128,6 +129,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
      sharded encoder also run with one band per card (files equal to
      encode_batch's; the sharded outputs equal to 4 bands on one card
      when there are 4).
+ 14. The host surface (host_surface()), on a 1536x1024 image: the PNG
+     writer and reader (read_png timed, pixels equal); the command line
+     tool in this process, `enc in.png out.webp` counted (each kernel
+     once; the file equal to encode(img)'s; wall seconds and the PNG
+     read's share), `dec` (no kernel; the host decoder's pixels), an RGBA
+     image through enc/dec and enc -lossless -exact/dec, `info` on VP8,
+     VP8X+ALPH and VP8L files; `python -m webp_tpu_torch.cli enc|dec|
+     info` in fresh processes (exit 0, the same files); the CLI on the
+     card against -device cpu at 64x48 and 72x40; a GIF round trip where
+     Pillow can be imported, and a process where it cannot (PNG works,
+     the GIF paths return 2); the rescaler to 768x512 (host seconds,
+     within 1 of the box mean). The Pillow plugin is not driven: it
+     needs Pillow, which a card machine need not have.
 
 Kernel times ("ms") are the card's own (runs queued behind a sleep, CUDA
 events); each kernel's time per call from an idle card, which also
@@ -142,7 +156,9 @@ launches in phase 11 (lossless_launches: the alpha encode, the lossless
 encodes, the decodes), its launches in phase 12 (animation_launches:
 the device encode, the AnimEncoder encodes, the decodes), its launches
 in phase 13 (band_launches: the non-planar program, the exact pipeline,
-the stream's multi-device branch, the sharded encoder, the oracle), for
+the stream's multi-device branch, the sharded encoder, the oracle), its
+launches in phase 14 (host_surface_launches: the CLI's enc, RGBA enc,
+lossless enc, decodes), for
 kernels 1-3 their times and bounds on the exact pipeline's bands
 (band_ms, band_bound_ms; kernel 3 also the non-planar program's and the
 band paths' times), error,
@@ -1662,6 +1678,288 @@ def bands(seed, card, w=W, h=H, n=4, dev=CARD, small=(64, 64)):
     return {"launches": launches, "k3": k3, "band": band}
 
 
+def _run_cli(argv):
+    """webp_tpu_torch.cli.main(argv) in this process: (exit code, stdout,
+    stderr)."""
+    import contextlib
+    import io
+
+    from webp_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def host_surface(seed, card, w=W, h=H, dev=CARD,
+                 small=((64, 48), (72, 40))):
+    """Phase 14: the host surface. On a w x h synth_images image from the
+    seed (the main path's width):
+
+    (a) write_png, then read_png timed (host seconds) and its pixels equal
+        to the image;
+    (b) cli.main(["enc", in.png, out.webp]) in this process, counted (each
+        kernel once, as encode() at the defaults), its file equal to
+        webp_tpu_torch.encode(img); wall seconds and the PNG read's share;
+    (c) cli.main(["dec", out.webp, back.png]): no kernel, pixels equal to
+        decode(data, backend="host"); ms;
+    (d) an RGBA image (phase 11's alpha_plane) through enc -> dec (an RGBA
+        PNG with the source's alpha; kernels once) and enc -lossless
+        -exact -> dec (equal to the source; no kernel);
+    (e) info on the VP8, VP8X+ALPH and VP8L files, its lines printed;
+    (f) `python -m webp_tpu_torch.cli enc|dec|info` as subprocesses from
+        the repository's root (the module entry on the card by default,
+        from a fresh process): exit 0, the in-process files and text;
+    (g) card against CPU at `small`: enc and enc -device cpu write equal
+        files, dec and dec -device cpu equal PNG pixels;
+    (h) whether Pillow can be imported (with it, a 3-frame animated WebP
+        -> GIF -> WebP round trip through the CLI keeps 3 frames; without
+        it, dec to .gif returns 2), and a process in which `import PIL`
+        fails: enc of the PNG writes (b)'s file, enc of a GIF and dec of
+        an animated file to .gif return 2 with the Pillow message;
+    (i) utils/rescaler.rescale_rgba of the RGBA image to w/2 x h/2: host
+        seconds, within 1 of the 2x2 box mean everywhere.
+
+    The Pillow plugin (pil_plugin.py) is not driven here: it needs Pillow,
+    which a card machine need not have (tests/test_torch_pil_plugin.py
+    holds it against the reference's plugin on the CPU). Returns the
+    kernels' launches in the phase: {"enc": ..., "enc_rgba": ...,
+    "lossless": ..., "dec": ...}."""
+    import importlib.util
+    import tempfile
+
+    import webp_tpu_torch
+    from webp_tpu_torch.animation.animation import encode_animation
+    from webp_tpu_torch.container.parser import Parser
+    from webp_tpu_torch.ops import cuda as KC
+    from webp_tpu_torch.utils import png, rescaler
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 14)
+    img = synth_images(rng, 1, h, w)[0]
+    rgba = np.dstack([img, alpha_plane(rng, h, w)])
+    dev_arg = [] if dev == CARD else ["-device", str(dev)]
+    launches = {}
+
+    def run(argv, want_rc=0):
+        rc, out, err = _run_cli(argv)
+        if rc != want_rc:
+            raise AssertionError(f"cli {argv}: exit {rc}, expected "
+                                 f"{want_rc}; stderr {err!r}")
+        return out, err
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    with tempfile.TemporaryDirectory(prefix="_phase14_", dir=HERE) as d:
+        p = {k: os.path.join(d, k) for k in (
+            "in.png", "out.webp", "back.png", "rgba.png", "rgba.webp",
+            "rgba_back.png", "ll.webp", "ll_back.png", "sub.webp",
+            "sub.png")}
+
+        # (a) The PNG writer and reader.
+        data_png, write_s = once(lambda: png.write_png(img))
+        with open(p["in.png"], "wb") as f:
+            f.write(data_png)
+        read_s = wall_s(lambda: png.read_png(data_png), 3)
+        if not np.array_equal(png.read_png(data_png), img):
+            raise AssertionError("read_png(write_png(img)) != img")
+        print(f"host surface: write_png {w}x{h} RGB {write_s:.4f} s, "
+              f"{len(data_png)} bytes; read_png {read_s:.4f} s (host, "
+              f"median of 3; zlib and the native unfilter), pixels equal",
+              flush=True)
+
+        # (b) enc in this process, counted.
+        KC.reset_launches()
+        run(["enc"] + dev_arg + [p["in.png"], p["out.webp"]])
+        launches["enc"] = dict(KC.LAUNCHES)
+        check_per_batch(launches["enc"], 1, f"cli enc {w}x{h} defaults")
+        data = read(p["out.webp"])
+        if data != webp_tpu_torch.encode(img, device=dev):
+            raise AssertionError("cli enc: the file differs from encode()'s")
+        check_webp(data, w, h)
+        enc_s = wall_s(lambda: run(["enc"] + dev_arg + [p["in.png"],
+                                                         p["out.webp"]]), 3)
+        e2e = wall_s(lambda: webp_tpu_torch.encode(img, device=dev), 3)
+        print(f"host surface: cli enc {w}x{h} at the defaults "
+              f"{enc_s:.4f} s wall (median of 3; encode() alone "
+              f"{e2e:.4f} s), of which the PNG read {read_s:.4f} s "
+              f"({read_s / enc_s:.1%}); {len(data)} bytes, equal to "
+              f"encode(img); launches {launches['enc']}; {card}", flush=True)
+
+        # (c) dec: no kernel, the host decoder's pixels.
+        KC.reset_launches()
+        run(["dec"] + dev_arg + [p["out.webp"], p["back.png"]])
+        launches["dec"] = dict(KC.LAUNCHES)
+        back = png.read_png(read(p["back.png"]))
+        if not np.array_equal(back, webp_tpu_torch.decode(data,
+                                                          backend="host")):
+            raise AssertionError("cli dec: pixels differ from the host "
+                                 "decoder's")
+        dec_s = wall_s(lambda: run(["dec"] + dev_arg + [p["out.webp"],
+                                                         p["back.png"]]), 3)
+        print(f"host surface: cli dec {w}x{h} to PNG {dec_s * 1e3:.1f} ms "
+              f"wall (median of 3), pixels equal to the host decoder's; "
+              f"{card}", flush=True)
+
+        # (d) RGBA: lossy with ALPH, and lossless.
+        with open(p["rgba.png"], "wb") as f:
+            f.write(png.write_png(rgba))
+        KC.reset_launches()
+        _, rgba_s = once(lambda: run(["enc"] + dev_arg + [
+            p["rgba.png"], p["rgba.webp"]]))
+        launches["enc_rgba"] = dict(KC.LAUNCHES)
+        check_per_batch(launches["enc_rgba"], 1, f"cli enc {w}x{h} RGBA")
+        KC.reset_launches()
+        _, ll_s = once(lambda: run(["enc", "-lossless", "-exact"] + dev_arg
+                                   + [p["rgba.png"], p["ll.webp"]]))
+        launches["lossless"] = dict(KC.LAUNCHES)
+        check_launches(launches["lossless"], {k: 0 for k in KC.LAUNCHES},
+                       "cli enc -lossless")
+        KC.reset_launches()
+        run(["dec"] + dev_arg + [p["rgba.webp"], p["rgba_back.png"]])
+        run(["dec"] + dev_arg + [p["ll.webp"], p["ll_back.png"]])
+        for k, v in KC.LAUNCHES.items():
+            launches["dec"][k] += v
+        check_launches(launches["dec"], {k: 0 for k in KC.LAUNCHES},
+                       "cli dec")
+        got = png.read_png(read(p["rgba_back.png"]))
+        if got.shape != rgba.shape or not np.array_equal(got[..., 3],
+                                                         rgba[..., 3]):
+            raise AssertionError("cli enc/dec RGBA: the alpha differs from "
+                                 "the source's")
+        if not np.array_equal(png.read_png(read(p["ll_back.png"])), rgba):
+            raise AssertionError("cli enc -lossless -exact / dec: not the "
+                                 "source")
+        print(f"host surface: cli enc RGBA {w}x{h} {rgba_s:.3f} s (ALPH "
+              f"on a host thread), dec: an RGBA PNG with the source's "
+              f"alpha; enc -lossless -exact {ll_s:.3f} s, dec equal to the "
+              f"source; launches {launches['enc_rgba']} (lossy), "
+              f"{launches['lossless']} (lossless), {launches['dec']} (the "
+              f"decodes); {card}", flush=True)
+
+        # (e) info on the three kinds of file.
+        infos = {}
+        for name in ("out.webp", "rgba.webp", "ll.webp"):
+            infos[name], _ = run(["info", p[name]])
+            for line in infos[name].splitlines():
+                print(f"host surface: info {name}: {line}", flush=True)
+
+        # (f) The module entry in fresh processes.
+        sub = {}
+        for argv in (["enc", p["in.png"], p["sub.webp"]],
+                     ["dec", p["sub.webp"], p["sub.png"]],
+                     ["info", p["sub.webp"]]):
+            t0 = time.perf_counter()
+            if argv[0] != "info":
+                argv = argv[:1] + dev_arg + argv[1:]
+            r = subprocess.run([sys.executable, "-m", "webp_tpu_torch.cli"]
+                               + argv, cwd=HERE,
+                               capture_output=True, text=True, timeout=600)
+            sub[argv[0]] = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise AssertionError(f"python -m webp_tpu_torch.cli "
+                                     f"{argv[0]}: exit {r.returncode}\n"
+                                     f"{r.stderr[-3000:]}")
+            if argv[0] == "info" and r.stdout != infos["out.webp"]:
+                raise AssertionError("the subprocess's info differs")
+        if read(p["sub.webp"]) != data or read(p["sub.png"]) != read(
+                p["back.png"]):
+            raise AssertionError("the subprocesses' files differ from the "
+                                 "in-process files")
+        print("host surface: python -m webp_tpu_torch.cli enc / dec / info "
+              "from the repository's root: exit 0, the in-process files "
+              "and text; " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                       sub.items())
+              + " wall per process (start-up included)", flush=True)
+
+        # (g) Card against CPU.
+        for (sw, sh) in small:
+            sp = os.path.join(d, f"s{sw}x{sh}.png")
+            with open(sp, "wb") as f:
+                f.write(png.write_png(synth_images(rng, 1, sh, sw)[0]))
+            run(["enc"] + dev_arg + [sp, sp + ".card.webp"])
+            run(["enc", "-device", "cpu", sp, sp + ".cpu.webp"])
+            if read(sp + ".card.webp") != read(sp + ".cpu.webp"):
+                raise AssertionError(f"cli enc {sw}x{sh}: card and CPU "
+                                     "files differ")
+            run(["dec"] + dev_arg + [sp + ".card.webp", sp + ".card.png"])
+            run(["dec", "-device", "cpu", sp + ".card.webp", sp + ".cpu.png"])
+            if not np.array_equal(png.read_png(read(sp + ".card.png")),
+                                  png.read_png(read(sp + ".cpu.png"))):
+                raise AssertionError(f"cli dec {sw}x{sh}: card and CPU "
+                                     "pixels differ")
+        print("host surface: cli enc and dec on the card == -device cpu at "
+              + ", ".join(f"{a}x{b}" for a, b in small), flush=True)
+
+        # (h) Pillow, or its absence (the CLI's GIF paths, so this script
+        # imports no PIL); then a fresh process in which `import PIL`
+        # fails, whatever this machine has.
+        has_pil = importlib.util.find_spec("PIL") is not None
+        frames = [synth_images(rng, 1, 32, 48)[0] for _ in range(3)]
+        anim = encode_animation([np.dstack([f, np.full((32, 48), 255,
+                                                       np.uint8)])
+                                 for f in frames], 100, lossless=True,
+                                device=dev)
+        p_anim, p_gif = os.path.join(d, "anim.webp"), os.path.join(d, "a.gif")
+        with open(p_anim, "wb") as f:
+            f.write(anim)
+        run(["dec"] + dev_arg + [p_anim, p_gif], want_rc=0 if has_pil else 2)
+        if has_pil:
+            run(["enc", "-lossless"] + dev_arg + [p_gif, p_gif + ".webp"])
+            n = len(Parser(read(p_gif + ".webp")).frames())
+            if n != 3:
+                raise AssertionError(f"GIF round trip: {n} frames, not 3")
+            os.remove(p_gif + ".webp")
+            print("host surface: Pillow is importable; an animated WebP -> "
+                  "GIF -> WebP round trip through the CLI keeps its 3 "
+                  "frames", flush=True)
+        else:
+            with open(p_gif, "wb") as f:
+                f.write(b"GIF89a" + bytes(64))
+            print("host surface: Pillow is not importable; dec of an "
+                  "animated file to GIF returns 2", flush=True)
+        code = ("import json, sys\n"
+                "sys.modules['PIL'] = None\n"
+                "from webp_tpu_torch import cli\n"
+                "for argv in json.loads(sys.argv[1]):\n"
+                "    print(cli.main(argv), flush=True)\n")
+        nopil = [["enc"] + dev_arg + [p["in.png"], p["in.png"] + ".webp"],
+                 ["enc"] + dev_arg + [p_gif, p_gif + ".webp"],
+                 ["dec"] + dev_arg + [p_anim, p_anim + ".no.gif"]]
+        r = subprocess.run([sys.executable, "-c", code, json.dumps(nopil)],
+                           cwd=HERE, capture_output=True, text=True,
+                           timeout=600)
+        said = [line for line in r.stderr.splitlines() if "Pillow" in line]
+        if (r.returncode, r.stdout.split(), len(said)) != (0, ["0", "2", "2"],
+                                                           2):
+            raise AssertionError(f"the CLI without Pillow: exit "
+                                 f"{r.returncode}, {r.stdout!r}\n"
+                                 f"{r.stderr[-3000:]}")
+        if read(p["in.png"] + ".webp") != data or any(os.path.exists(x) for x
+                in (p_gif + ".webp", p_anim + ".no.gif")):
+            raise AssertionError("the CLI without Pillow: wrong files")
+        print(f"host surface: a process without Pillow: enc of the PNG "
+              f"writes encode(img)'s file, enc of a GIF and dec of an "
+              f"animated file to GIF return 2 ({said[-1]!r})", flush=True)
+
+    # (i) The rescaler.
+    small_rgba, resc_s = once(lambda: rescaler.rescale_rgba(rgba, w // 2,
+                                                            h // 2))
+    box = rgba.reshape(h // 2, 2, w // 2, 2, 4).mean(axis=(1, 3))
+    err = float(np.abs(small_rgba.astype(np.float64) - box).max())
+    if err > 1.0:
+        raise AssertionError(f"rescale_rgba: {err} from the box mean")
+    print(f"host surface: rescale_rgba {w}x{h} RGBA -> {w // 2}x{h // 2} "
+          f"{resc_s:.3f} s (host), at most {err} from the 2x2 box mean",
+          flush=True)
+    print(f"host surface: phase 14 took {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+    return launches
+
+
 class Recorder:
     """Wraps a kernel wrapper so that the main path's call records its
     (card) inputs; the kernel and its plain version are then held against
@@ -1712,7 +2010,7 @@ def main(argv=None):
 
     # 2. Build every library of the path, all compilers at once.
     t0 = time.perf_counter()
-    spent = _build.build(["webp_enc", "webp_dec", "vp8l_enc"]
+    spent = _build.build(["webp_enc", "webp_dec", "vp8l_enc", "png"]
                          + list(_build.KERNEL_LIBS))
     print(f"build: {time.perf_counter() - t0:.1f} s wall; per library "
           + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()), flush=True)
@@ -1941,6 +2239,12 @@ def main(argv=None):
                               for part, v in phase13["launches"].items()}
         k.update(phase13["band"].get(k["name"], {}))
     k3.update(phase13["k3"])
+
+    # 14. The host surface: the CLI on the card, PNG, the rescaler.
+    phase14 = host_surface(args.seed, card)
+    for k in kernels:
+        k["host_surface_launches"] = {part: v[k["name"]]
+                                      for part, v in phase14.items()}
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -794,3 +794,63 @@ def test_kernel4_on_the_oracles_modes_equals_the_oracle():
         assert np.array_equal(wire["y2"], y2.cpu().numpy())
         assert np.array_equal(wire["skip"].astype(bool), skip.cpu().numpy())
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(64, 48), (72, 40)])
+def test_cli_on_the_card_equals_encode_and_the_cpu(geom, tmp_path):
+    """The CLI's defaults run on the card: `enc in.png out.webp` launches
+    each kernel once and writes encode(img)'s bytes, which `enc -device
+    cpu` also writes; `dec` launches none and gives the host decoder's
+    pixels, as `dec -device cpu` does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.cli import main
+    from webp_tpu_torch.ops import cuda
+    from webp_tpu_torch.utils.png import read_png, write_png
+
+    w, h = geom
+    img = _images(1, h, w, 61)[0]
+    src, out = str(tmp_path / "in.png"), str(tmp_path / "out.webp")
+    with open(src, "wb") as f:
+        f.write(write_png(img))
+    cuda.reset_launches()
+    assert main(["enc", src, out]) == 0
+    assert set(cuda.LAUNCHES.values()) == {1}, cuda.LAUNCHES
+    data = open(out, "rb").read()
+    assert data == webp_tpu_torch.encode(img)
+    assert main(["enc", "-device", "cpu", src, out + ".cpu"]) == 0
+    assert open(out + ".cpu", "rb").read() == data
+    cuda.reset_launches()
+    assert main(["dec", out, str(tmp_path / "back.png")]) == 0
+    assert not any(cuda.LAUNCHES.values()), cuda.LAUNCHES
+    back = read_png(open(tmp_path / "back.png", "rb").read())
+    assert np.array_equal(back, webp_tpu_torch.decode(data, backend="host"))
+    assert main(["dec", "-device", "cpu", out, str(tmp_path / "c.png")]) == 0
+    assert np.array_equal(read_png(open(tmp_path / "c.png", "rb").read()),
+                          back)
+
+
+@pytest.mark.cuda
+def test_cli_and_png_at_full_size_on_the_card(tmp_path):
+    """1536x1024: read_png(write_png(img)) is img (RGB and RGBA), and the
+    CLI's enc and dec on the card equal encode(img) and the host
+    decoder."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.cli import main
+    from webp_tpu_torch.utils.png import read_png, write_png
+
+    img = _images(1, 1024, 1536, 62)[0]
+    rgba = np.dstack([img, img[..., 1]])
+    for a in (img, rgba):
+        assert np.array_equal(read_png(write_png(a)), a)
+    src, out = str(tmp_path / "in.png"), str(tmp_path / "out.webp")
+    with open(src, "wb") as f:
+        f.write(write_png(img))
+    assert main(["enc", src, out]) == 0
+    data = open(out, "rb").read()
+    assert data == webp_tpu_torch.encode(img)
+    assert main(["dec", out, str(tmp_path / "back.png")]) == 0
+    assert np.array_equal(read_png(open(tmp_path / "back.png", "rb").read()),
+                          webp_tpu_torch.decode(data, backend="host"))

@@ -7,7 +7,8 @@ Two kinds of library, both with a plain C interface loaded by ctypes:
     decoder with its token parse and fancy upsampler and the VP8L decoder
     (native/src, g++), used on every decode; and the VP8L encoder's
     entropy coder, predictor and cross-color searches (native/src, g++),
-    used on every lossless encode and ALPH plane;
+    used on every lossless encode and ALPH plane; and the PNG reader's
+    row unfilter (native/src, g++), used by the command line tool;
   * the Hopper kernels (csrc/*.cu, nvcc for sm_90a), used when a kernel
     wrapper receives CUDA tensors.
 
@@ -57,6 +58,7 @@ LIBS = {
                  ["native/src/bitio.h"]),
     "vp8l_enc": ("g++", ["native/src/vp8l_enc.cc",
                          "native/src/vp8l_predictor.cc"], []),
+    "png": ("g++", ["native/src/png_unfilter.cc"], []),
     "p1_alpha": ("nvcc", ["csrc/p1_alpha.cu"], ["csrc/common.cuh"]),
     "p1_mode": ("nvcc", ["csrc/p1_mode.cu"], ["csrc/common.cuh"]),
     "i4_search": ("nvcc", ["csrc/i4_search.cu"], ["csrc/common.cuh"]),
