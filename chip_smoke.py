@@ -142,6 +142,16 @@ Phases, each of which raises on failure (the script then exits nonzero):
      the GIF paths return 2); the rescaler to 768x512 (host seconds,
      within 1 of the box mean). The Pillow plugin is not driven: it
      needs Pillow, which a card machine need not have.
+ 15. The chroma AC quantizer delta (uv_ac()): encode_batch(...,
+     uv_ac=True) on the main path's 16 images, counted (each kernel
+     once), each file's signalled (dq_uv_dc, dq_uv_ac) printed (one AC
+     delta at least must be non-zero); kernels 1-4 against their plain
+     versions on the inputs that run gave them (per-image UV quant rows
+     shifted by each image's AC delta), their card times beside phase
+     4's; the stream (host_yuv=False, uv_ac=True, counted) and the exact
+     band pipeline (one image, 4 bands of the card, counted) write the
+     batch's files; card == CPU files at 64x48 and 72x40; bytes and PSNR
+     of the 16 files with uv_ac against phase 3's without.
 
 Kernel times ("ms") are the card's own (runs queued behind a sleep, CUDA
 events); each kernel's time per call from an idle card, which also
@@ -158,7 +168,9 @@ the device encode, the AnimEncoder encodes, the decodes), its launches
 in phase 13 (band_launches: the non-planar program, the exact pipeline,
 the stream's multi-device branch, the sharded encoder, the oracle), its
 launches in phase 14 (host_surface_launches: the CLI's enc, RGBA enc,
-lossless enc, decodes), for
+lossless enc, decodes), its launches in phase 15 (uv_ac_launches:
+encode_batch, the stream, the exact pipeline) and its card time there
+(uv_ac_ms), for
 kernels 1-3 their times and bounds on the exact pipeline's bands
 (band_ms, band_bound_ms; kernel 3 also the non-planar program's and the
 band paths' times), error,
@@ -1960,6 +1972,167 @@ def host_surface(seed, card, w=W, h=H, dev=CARD,
     return launches
 
 
+def signalled_uv(data: bytes):
+    """The (dq_uv_dc, dq_uv_ac) a WebP file's VP8 frame header signals,
+    read by the port's header reader (lossy/decode.py)."""
+    from webp_tpu_torch.container.parser import Parser
+    from webp_tpu_torch.lossy.decode import VP8Decoder
+
+    return VP8Decoder(Parser(data).frames()[0].bitstream).dq_uv
+
+
+def uv_ac(seed, card, imgs, files_off=None, main_ms=None, dev=CARD,
+          small=((64, 48), (72, 40))):
+    """Phase 15: the chroma AC quantizer delta, uv_ac=True, at the main
+    path's configuration (q75, 4 segments, SNS 50, I4, skew 1, rd_drop
+    1024) on imgs (B x h x w):
+
+    (a) encode_batch(..., uv_ac=True), counted (each kernel once), each
+        file's signalled (dq_uv_dc, dq_uv_ac) printed (at least one AC
+        delta must be non-zero);
+    (b) kernels 1-4 against their plain versions on the inputs (a) gave
+        them (recorded): integer outputs equal, scores within SCORE_RTOL;
+        their card times beside main_ms, phase 4's times on the same
+        images without uv_ac;
+    (c) encode_lossy_stream(..., host_yuv=False, uv_ac=True) in one batch,
+        counted, its files equal to (a)'s;
+    (d) the first image through the exact band pipeline
+        (encode_lossy_mesh, 4 bands on [dev] * 4, uv_ac=True), counted,
+        its file equal to (a)'s;
+    (e) card against CPU files with uv_ac=True at `small` (encode_batch
+        on 2 images, encode() on one), their deltas printed;
+    (f) bytes and PSNR (RGB, the host decoder) of (a)'s files beside
+        files_off, encode_batch's files without uv_ac (made here when
+        not given).
+    Returns {"launches": {"encode_batch", "stream", "exact"}, "ms": {kernel:
+    ms}} for the kernels line."""
+    import webp_tpu_torch
+    from webp_tpu_torch.container import riff
+    from webp_tpu_torch.encoder import _psnr_of
+    from webp_tpu_torch.lossy import device_encode as DE
+    from webp_tpu_torch.ops import cuda as KC
+    from webp_tpu_torch.ops import i4_kernel as I4K
+    from webp_tpu_torch.ops import p1_kernels as P1K
+    from webp_tpu_torch.ops import p2_kernel as P2K
+    from webp_tpu_torch.parallel import exact as EX
+
+    t_phase = time.perf_counter()
+    n, h, w = imgs.shape[:3]
+    none = {k: 0 for k in KC.LAUNCHES}
+    launches, ms = {}, {}
+
+    # (a) The batch, counted; the kernels' card inputs are recorded.
+    with Recorder(P1K, "alphas") as r_a, \
+            Recorder(P1K, "mode_search") as r_m, \
+            Recorder(I4K, "i4_scores") as r_i4, \
+            Recorder(P2K, "phase2_pack") as r_p2:
+        KC.reset_launches()
+        files, first_s = once(lambda: webp_tpu_torch.encode_batch(
+            list(imgs), QUALITY, device=dev, uv_ac=True))
+        launches["encode_batch"] = dict(KC.LAUNCHES)
+    check_per_batch(launches["encode_batch"], 1,
+                    f"uv_ac: encode_batch B={n} {w}x{h}")
+    for f in files:
+        check_webp(f, w, h)
+    dq = [signalled_uv(f) for f in files]
+    if not any(d[1] for d in dq):
+        raise AssertionError(f"uv_ac: every file signals dq_uv_ac 0: {dq}")
+    print(f"uv_ac: encode_batch B={n} {w}x{h} q{QUALITY} uv_ac=True first "
+          f"call {first_s:.3f} s; signalled (dq_uv_dc, dq_uv_ac) per image: "
+          f"{dq}", flush=True)
+
+    # (b) Kernels 1-4 against their plain versions on those inputs.
+    for kname, rec, kernel, plain in (
+            ("p1_alpha", r_a, P1K.alphas, P1K.alphas_plain),
+            ("p1_mode", r_m, P1K.mode_search, P1K.mode_search_plain),
+            ("i4_search", r_i4, I4K.i4_scores, I4K.i4_scores_plain),
+            ("p2_wavefront", r_p2, P2K.phase2_pack, P2K.phase2_pack_plain)):
+        if len(rec.calls) != 1:
+            raise AssertionError(f"{kname}: {len(rec.calls)} recorded "
+                                 "calls, expected 1")
+        err, (ms[kname],) = hold_calls(kname, kernel, plain, rec.calls)
+        beside = ""
+        if main_ms and kname in main_ms:
+            beside = (f" (without uv_ac, phase 4: {main_ms[kname]:.4f} ms, "
+                      f"{(ms[kname] / main_ms[kname] - 1) * 100:+.2f}%)")
+        print(f"uv_ac: kernel {kname} on encode_batch(uv_ac=True)'s inputs: "
+              f"agrees with its plain version (max abs err {err}); "
+              f"{ms[kname]:.4f} ms on the card (runs queued){beside}; {card}",
+              flush=True)
+    # Kernel 2's per-image UV rows (qtab type 2, segment 0, the quant
+    # step's AC position) differ between images whose AC deltas differ.
+    uv_ac_q = r_m.calls[0][2].reshape(n, 3, 4, 4, 16)[:, 2, 0, 0, 1]
+    print(f"uv_ac: kernel 2's UV AC quant step of segment 0 per image: "
+          f"{uv_ac_q.tolist()}", flush=True)
+
+    # (c) The stream with uv_ac=True equals the batch.
+    KC.reset_launches()
+    stream, stream_s = once(lambda: DE.encode_lossy_stream(
+        list(imgs), QUALITY, batch=n, host_yuv=False, device=dev,
+        uv_ac=True))
+    launches["stream"] = dict(KC.LAUNCHES)
+    check_per_batch(launches["stream"], 1, "uv_ac: encode_lossy_stream")
+    if [riff.assemble_riff([riff.Chunk(riff.VP8, b)])
+            for b in stream] != files:
+        raise AssertionError("uv_ac: the stream's files differ from "
+                             "encode_batch's")
+    print(f"uv_ac: encode_lossy_stream(host_yuv=False, uv_ac=True) {n} "
+          f"images in {stream_s:.3f} s; files equal to encode_batch's",
+          flush=True)
+
+    # (d) The exact band pipeline on 4 bands of one card, one image.
+    sp = 4
+    KC.reset_launches()
+    frames, exact_s = once(lambda: EX.encode_lossy_mesh(
+        [imgs[0]], devices=[dev] * sp, uv_ac=True))
+    launches["exact"] = dict(KC.LAUNCHES)
+    check_launches(launches["exact"], dict(
+        none, p1_alpha=sp, p1_mode=2 * sp - 1, i4_search=2 * sp - 1),
+        "uv_ac: exact band pipeline")
+    if riff.assemble_riff([riff.Chunk(riff.VP8, frames[0])]) != files[0]:
+        raise AssertionError("uv_ac: the exact band pipeline's file differs "
+                             "from encode_batch's")
+    print(f"uv_ac: exact band pipeline, 1 image on {sp} bands of one card, "
+          f"uv_ac=True: {exact_s:.3f} s; launches {launches['exact']}; file "
+          f"equal to encode_batch's", flush=True)
+
+    # (e) Card against CPU at the small sizes.
+    rng = np.random.default_rng(seed + 15)
+    for sw, sh in small:
+        x = list(synth_images(rng, 2, sh, sw))
+        pair = [webp_tpu_torch.encode_batch(x, QUALITY, device=d, uv_ac=True)
+                for d in (dev, "cpu")]
+        one = [webp_tpu_torch.encode(x[0], device=d, uv_ac=True)
+               for d in (dev, "cpu")]
+        if pair[0] != pair[1] or one[0] != one[1] or one[0] != pair[0][0]:
+            raise AssertionError(f"uv_ac {sw}x{sh}: card and CPU files "
+                                 "differ")
+        print(f"uv_ac: {sw}x{sh} card == CPU (encode_batch of 2, encode() "
+              f"of 1), deltas {[signalled_uv(f) for f in pair[0]]}",
+              flush=True)
+
+    # (f) Bytes and PSNR with uv_ac on and off.
+    if files_off is None:
+        files_off = webp_tpu_torch.encode_batch(list(imgs), QUALITY,
+                                                device=dev)
+    size = {k: sum(map(len, v)) for k, v in (("on", files),
+                                             ("off", files_off))}
+    psnr = {k: [_psnr_of(im, f) for im, f in zip(imgs, v)]
+            for k, v in (("on", files), ("off", files_off))}
+    print(f"uv_ac: {n} images {w}x{h}: {size['on']} bytes with uv_ac, "
+          f"{size['off']} without ({(size['on'] / size['off'] - 1) * 100:+.3f}"
+          f"%); mean PSNR (RGB, host decoder) "
+          f"{statistics.mean(psnr['on']):.4f} dB with, "
+          f"{statistics.mean(psnr['off']):.4f} dB without "
+          f"({statistics.mean(psnr['on']) - statistics.mean(psnr['off']):+.4f}"
+          f" dB); per image bytes on/off "
+          + ", ".join(f"{len(a)}/{len(b)}" for a, b in zip(files, files_off))
+          + f"; {card}", flush=True)
+    print(f"uv_ac: phase 15 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches, "ms": ms}
+
+
 class Recorder:
     """Wraps a kernel wrapper so that the main path's call records its
     (card) inputs; the kernel and its plain version are then held against
@@ -2245,6 +2418,14 @@ def main(argv=None):
     for k in kernels:
         k["host_surface_launches"] = {part: v[k["name"]]
                                       for part, v in phase14.items()}
+
+    # 15. The chroma AC quantizer delta on the main path's images.
+    phase15 = uv_ac(args.seed, card, imgs, files_off=files,
+                    main_ms={k["name"]: k["ms"] for k in kernels})
+    for k in kernels:
+        k["uv_ac_launches"] = {part: v[k["name"]] for part, v in
+                               phase15["launches"].items()}
+        k["uv_ac_ms"] = phase15["ms"][k["name"]]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -257,9 +257,9 @@ def test_forbidden_import_pattern_catches_offenders():
 
 
 def test_port_reads_no_reference_env_knobs():
-    """rd_drop is an argument, the UV dq_ac delta stays off, nothing
-    switches a kernel off: the port reads none of the reference's env
-    switches, and no environment at all from Python."""
+    """rd_drop is an argument, the UV dq_ac delta is an argument (uv_ac),
+    nothing switches a kernel off: the port reads none of the reference's
+    env switches, and no environment at all from Python."""
     knobs = ("WEBPTPU_RD_DROP", "WEBPTPU_DQUV_AC", "WEBPTPU_NO_PALLAS",
              "WEBPTPU_NO_P1K", "WEBPTPU_P2K", "WEBPTPU_NO_PLANAR",
              "WEBPTPU_PY_LOOP", "WEBPTPU_VP8L_DEVICE")

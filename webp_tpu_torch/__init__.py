@@ -6,8 +6,8 @@ A port of the JAX package webp_tpu, which stays the reference: on the
 same inputs this package writes byte-identical WebP files and decodes
 to identical pixels.
 
-    encode(img, device=None, **options) -> bytes
-    encode_batch(images, quality=75, device=None) -> list[bytes]
+    encode(img, device=None, uv_ac=False, **options) -> bytes
+    encode_batch(images, quality=75, device=None, uv_ac=False) -> list[bytes]
     decode(data, backend="device", device=None) -> RGB or RGBA uint8
     decode_rgba(data, backend="device", device=None) -> RGBA uint8
     decode_config(data), get_features(data) -> Features
@@ -24,6 +24,12 @@ default is "host":
     and upsampling on the card), decode(data, backend="host") the native
     decoder; both give webp_tpu.decode(data)'s pixels. VP8L frames and
     ALPH planes decode on the host on every backend.
+
+uv_ac=True is the reference's chroma AC switch as an argument: the
+device encode derives each image's chroma AC quantizer delta from its
+mean UV alpha; it reaches every device encode form (encode_batch, the
+stream, encode()'s device backends, encode_animation_device, the band
+encoders) and equals the reference's files with the switch set.
 
 LAST_STATS holds the last encode()'s EncStats.
 """
@@ -53,11 +59,14 @@ def __getattr__(name):
     raise AttributeError(name)
 
 
-def encode_batch(images, quality: int = 75, device=None, **options) -> list:
+def encode_batch(images, quality: int = 75, device=None,
+                 uv_ac: bool = False, **options) -> list:
     """Encodes a batch of same-sized RGB images in one device program
     (lossy, skew-1 wavefront) and returns the WebP files. Images whose
     sides are not multiples of 16 are edge-padded for the device and
-    cropped by the frame header."""
+    cropped by the frame header. uv_ac derives each image's chroma AC
+    quantizer delta from its mean UV alpha (the reference's chroma AC
+    switch); options are encode_lossy_batch's."""
     from .container import riff as r
     from .lossy.device_encode import encode_lossy_batch, pad_to_macroblocks
 
@@ -66,7 +75,7 @@ def encode_batch(images, quality: int = 75, device=None, **options) -> list:
     rgbs = pad_to_macroblocks(rgbs)
     bitstreams = encode_lossy_batch(rgbs, quality=int(quality),
                                     true_width=w, true_height=h,
-                                    device=device, **options)
+                                    device=device, uv_ac=uv_ac, **options)
     return [r.assemble_riff([r.Chunk(r.VP8, b)]) for b in bitstreams]
 
 

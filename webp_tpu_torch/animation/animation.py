@@ -555,11 +555,13 @@ def encode_animation(frames: List[np.ndarray], durations, device=None,
 
 def encode_animation_device(frames: List[np.ndarray], durations,
                             quality: int = 75, loop_count: int = 0,
-                            batch: int = 8, device=None) -> bytes:
+                            batch: int = 8, device=None,
+                            uv_ac: bool = False) -> bytes:
     """Frame-parallel animated-WebP encode on the device: the unique
     frames ride the stream's batch axis (encode_lossy_stream at its
     default host YUV, so the four kernels run once per batch on `device`;
-    None means the card, "cpu" the plain versions).
+    None means the card, "cpu" the plain versions; uv_ac is the stream's:
+    each frame's chroma AC quantizer delta from its mean UV alpha).
 
     Every frame is stored as a full-canvas ANMF (no sub-rect diffing:
     frames become independent, which is what makes them batchable);
@@ -584,7 +586,7 @@ def encode_animation_device(frames: List[np.ndarray], durations,
     from ..lossy.device_encode import encode_lossy_stream
 
     bitstreams = encode_lossy_stream([f for f, _ in keep], quality=quality,
-                                     batch=batch, device=device)
+                                     batch=batch, device=device, uv_ac=uv_ac)
     mux = Muxer()
     mux.loop_count = loop_count
     mux.canvas_width = w

@@ -2,7 +2,7 @@
 
 Counterpart of webp_tpu/encoder.py:
 
-    encode(img, device=None, **options) -> bytes
+    encode(img, device=None, uv_ac=False, **options) -> bytes
 
 writes the file webp_tpu.encode(img, **options) writes, byte for byte,
 for every option (EncoderOptions, presets, segments, SNS, filter and
@@ -186,13 +186,23 @@ def check_backend(backend: str, where: str, allowed=BACKENDS) -> None:
                          f"{backend!r} (one of {allowed})")
 
 
-def encode(img, device=None, **options) -> bytes:
+def encode(img, device=None, uv_ac: bool = False, **options) -> bytes:
     """Encodes an RGB(A) uint8 array [h, w, 3|4] to a WebP file. The
     device backends run on `device` (None: the card; "cpu": the plain
     versions); backend="host" runs on the host whatever `device` says.
     Keyword options are EncoderOptions' fields, or
     options=EncoderOptions(...). An RGBA image whose alpha is 255
-    everywhere encodes as RGB."""
+    everywhere encodes as RGB.
+
+    uv_ac (lossy, device backends): the device program derives the chroma
+    AC quantizer delta from the image's mean UV alpha (midpoint 94;
+    without it the delta is 0), as the reference's device encode does
+    with its chroma AC switch set; rate control and autofilter passes keep it. It is not an
+    EncoderOptions field, which stays the reference's. backend="host"
+    ignores it, as the reference's host path ignores the switch: the host
+    analysis always derives that delta, from its own UV alpha (midpoint
+    64, lossy/analysis.py); so does the device path's escape-overflow
+    fallback."""
     a = _to_array(img)
     opts = options["options"] if isinstance(options.get("options"),
                                             EncoderOptions) \
@@ -204,8 +214,8 @@ def encode(img, device=None, **options) -> bytes:
     if opts.lossless:
         return _encode_lossless(a, opts, device)
     if opts.target_size > 0 or opts.target_psnr > 0:
-        return _encode_lossy_rate_controlled(a, opts, device)
-    return _encode_lossy(a, opts, device)
+        return _encode_lossy_rate_controlled(a, opts, device, uv_ac)
+    return _encode_lossy(a, opts, device, uv_ac=uv_ac)
 
 
 def _psnr_of(a: np.ndarray, data: bytes) -> float:
@@ -218,7 +228,7 @@ def _psnr_of(a: np.ndarray, data: bytes) -> float:
 
 
 def _encode_lossy_rate_controlled(a: np.ndarray, opts: EncoderOptions,
-                                  device) -> bytes:
+                                  device, uv_ac: bool = False) -> bytes:
     """Multi-pass rate control toward target_size / target_psnr (the
     reference's, encoder.py:260-370): the size(quality) curve modelled as
     a power law and stepped by secant in log-log space, the host YUV
@@ -254,7 +264,7 @@ def _encode_lossy_rate_controlled(a: np.ndarray, opts: EncoderOptions,
     def one_pass(o, q_):
         return _encode_lossy(a, replace(o, quality=q_, target_size=0,
                                         target_psnr=0.0), device,
-                             _yuv_cache=yuv_cache)
+                             _yuv_cache=yuv_cache, uv_ac=uv_ac)
 
     probes_are_full = probe_opts is opts
     for p in range(max_passes):
@@ -340,7 +350,7 @@ def _host_planes(rgb, opts: EncoderOptions, dither: float, sharp: bool,
 
 
 def _encode_lossy(a: np.ndarray, opts: EncoderOptions, device,
-                  _yuv_cache: dict = None) -> bytes:
+                  _yuv_cache: dict = None, uv_ac: bool = False) -> bytes:
     """The reference's _encode_lossy. Device backends: the padded RGB goes
     to the device program, host entropy coding; host planes only where
     the autofilter search reads them (the plain dithered import, even
@@ -365,12 +375,12 @@ def _encode_lossy(a: np.ndarray, opts: EncoderOptions, device,
                 method=opts.alpha_compression,
                 filtering=opts.alpha_filtering, effort=opts.method)
             return _encode_lossy_frame(frame, opts, device, _yuv_cache,
-                                       alpha_future)
-    return _encode_lossy_frame(a, opts, device, _yuv_cache, None)
+                                       alpha_future, uv_ac)
+    return _encode_lossy_frame(a, opts, device, _yuv_cache, None, uv_ac)
 
 
 def _encode_lossy_frame(a: np.ndarray, opts: EncoderOptions, device,
-                        _yuv_cache, alpha_future) -> bytes:
+                        _yuv_cache, alpha_future, uv_ac=False) -> bytes:
     """_encode_lossy's VP8 frame, then the container around it and the
     ALPH payload of alpha_future (None without alpha)."""
     from .lossy.device_encode import (DeviceVP8Encoder, pad_to_macroblocks,
@@ -414,7 +424,7 @@ def _encode_lossy_frame(a: np.ndarray, opts: EncoderOptions, device,
             enc = planeless(w, h, cfg)
         enc.dithering = dither
         enc.rgb_input = pad_to_macroblocks(rgb[None])[0]
-        vp8 = enc.encode(device=device)
+        vp8 = enc.encode(device=device, uv_ac=uv_ac)
     # PSNR from the encoder's own reconstruction where it exists on the
     # host (the reference's, lossy/encode.go:1614-1626).
     psnr = 0.0

@@ -167,6 +167,7 @@ class VP8Decoder:
         dq_y2_ac = _read_optional_signed(br, 4)
         dq_uv_dc = _read_optional_signed(br, 4)
         dq_uv_ac = _read_optional_signed(br, 4)
+        self.dq_uv = (dq_uv_dc, dq_uv_ac)    # the signalled chroma deltas
         self.dqm: List[QuantMatrix] = []
         for s in range(4):
             if seg.use_segment:

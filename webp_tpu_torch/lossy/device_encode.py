@@ -86,7 +86,7 @@ class DeviceVP8Encoder(VP8Encoder):
         cfg = dataclasses.replace(cfg, segments=1, sns_strength=0)
         super().__init__(y, u, v, width, height, cfg)
 
-    def encode(self, device=None) -> bytes:
+    def encode(self, device=None, uv_ac: bool = False) -> bytes:
         """One image (rgb_input) through the device program at B=1, its
         YUV import on the device, and the host tail. An escape list that
         overflows the device's capacity re-encodes the image with the exact
@@ -95,16 +95,22 @@ class DeviceVP8Encoder(VP8Encoder):
         image, as the reference's). device: None for the card, "cpu" for
         the plain versions. Methods 0-2 (or i4_blocks off) run without
         the I4 search; methods 5 and 6 run the closed loop at skew 2 with
-        the trellis, 6 with the in-loop search."""
+        the trellis, 6 with the in-loop search. uv_ac: the chroma AC
+        quantizer delta from the image's mean UV alpha
+        (fast_encode_fn's); the overflow fallback, on the host, does not
+        read it (the host encoder's own analysis sets that delta)."""
         from ..ops.fastpath import fast_encode_fn, unpack_output_blob
 
         use_i4 = bool(self.cfg.i4_blocks) and self.cfg.method >= 3
         sk = 2 if self.cfg.method >= 5 and use_i4 else 1
+        # uv_ac is passed only when set: the default call configures the
+        # program with the reference's own arguments.
         fn = fast_encode_fn(self.mb_w, self.mb_h, self.cfg.quality,
                             self.dev_segments, self.dev_sns, use_i4,
                             sharp_yuv=bool(self.cfg.sharp_yuv), sk=sk,
                             trellis=self.cfg.method >= 5 and use_i4,
-                            i4_mode_search=self.cfg.method >= 6 and use_i4)
+                            i4_mode_search=self.cfg.method >= 6 and use_i4,
+                            **({"uv_ac": True} if uv_ac else {}))
         out = fn.rgb_blob(torch.from_numpy(np.ascontiguousarray(
             self.rgb_input[None])).to(_resolve_device(device)))
         host = unpack_output_blob([c.cpu().numpy() for c in out],
@@ -248,14 +254,16 @@ def _fallback_planes(rgb, fn):
 
 
 def device_blob(rgbs, quality: int = 75, segments: int = 4,
-                sns_strength: int = 50, device=None, sharp_yuv=False):
+                sns_strength: int = 50, device=None, sharp_yuv=False,
+                uv_ac=False):
     """Runs the device program on a batch: numpy uint8 [B, H, W, 3] (H, W
-    multiples of 16) -> (fn, host field dict of numpy [B, ...] arrays)."""
+    multiples of 16) -> (fn, host field dict of numpy [B, ...] arrays).
+    uv_ac: the chroma AC quantizer delta (fast_encode_fn's)."""
     from ..ops.fastpath import fast_encode_fn, unpack_output_blob
 
     B, H, W, _ = rgbs.shape
     fn = fast_encode_fn(W // 16, H // 16, quality, segments, sns_strength,
-                        sharp_yuv=sharp_yuv)
+                        sharp_yuv=sharp_yuv, uv_ac=uv_ac)
     x = torch.from_numpy(np.ascontiguousarray(rgbs)).to(
         _resolve_device(device))
     chunks = fn.rgb_blob(x)
@@ -285,19 +293,24 @@ def encode_lossy_batch(rgbs, quality: int = 75, partitions: int = 0,
                        filter_strength: int = 60, num_threads: int = 8,
                        true_width: int = None, true_height: int = None,
                        segments: int = 4, sns_strength: int = 50,
-                       device=None, sharp_yuv: bool = False):
+                       device=None, sharp_yuv: bool = False,
+                       uv_ac: bool = False):
     """Batched device encode: one device program over a stack of
     same-sized images, then parallel host entropy coding (the native C++
     calls release the GIL).
 
     rgbs: numpy uint8 [B, H, W, 3] with H, W multiples of 16 (pre-padded).
     device: None for the card, "cpu" for the plain versions. sharp_yuv:
-    import with the sharp-YUV refinement on the device.
+    import with the sharp-YUV refinement on the device. uv_ac: derive
+    each image's chroma AC quantizer delta from its mean UV alpha (the
+    reference's chroma AC switch; fast_encode_fn); the frame header
+    signals it. The escape-overflow fallback ignores it, as the
+    reference's host encoder ignores the switch.
     Returns a list of VP8 bitstreams.
     """
     B, H, W, _ = rgbs.shape
     fn, host = device_blob(rgbs, quality, segments, sns_strength, device,
-                           sharp_yuv)
+                           sharp_yuv, uv_ac)
     cfg = LossyConfig(quality=quality, partitions=partitions,
                       filter_strength=filter_strength, segments=segments,
                       sns_strength=sns_strength)
@@ -310,7 +323,8 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
                         partitions: int = 0, filter_strength: int = 60,
                         num_threads: int = 12, host_yuv: bool = None,
                         segments: int = 4, sns_strength: int = 50,
-                        sharp_yuv: bool = False, device=None, devices=None):
+                        sharp_yuv: bool = False, device=None, devices=None,
+                        uv_ac: bool = False):
     """Pipelined encode of a stream of same-sized images (counterpart of
     the reference's encode_lossy_stream).
 
@@ -355,6 +369,8 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
     encode_batch's. The reference takes the branch whenever it sees more
     than one device; the port only when asked, since its band pipeline
     is slower than one card's stream (ROADMAP queue 2).
+    uv_ac derives each image's chroma AC quantizer delta from its mean
+    UV alpha (encode_lossy_batch's), on both branches.
     An image whose escape list
     overflows is re-encoded by the exact host encoder from the caller's
     unpadded image, as the reference's stream does (encode_lossy_batch
@@ -380,7 +396,7 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
             frames += encode_lossy_mesh(
                 pad_to_macroblocks(rgbs), quality=quality, segments=segments,
                 sns_strength=sns_strength, true_width=w, true_height=h,
-                devices=mesh)
+                devices=mesh, uv_ac=uv_ac)
         return frames
     if sharp_yuv:
         host_yuv = False  # the refinement runs on the device from RGB
@@ -390,7 +406,7 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
     on_card = dev.type == "cuda"
     H, W = (h + 15) // 16 * 16, (w + 15) // 16 * 16
     fn = fast_encode_fn(W // 16, H // 16, quality, segments, sns_strength,
-                        sharp_yuv=sharp_yuv)
+                        sharp_yuv=sharp_yuv, uv_ac=uv_ac)
     cfg = LossyConfig(quality=quality, partitions=partitions,
                       filter_strength=filter_strength, segments=segments,
                       sns_strength=sns_strength)

@@ -19,8 +19,10 @@ webp_tpu/ops/fastpath.py, the batched planar main path).
 
 Configurations ported: segmented (segments > 1 and >= 4 macroblocks) or
 unsegmented (one quantizer, static lambdas, no phase 0), I4 on or off,
-SNS, rd_drop, skew 1 or 2, the trellis, the in-loop search, and the
-sharp-YUV import (ops/sharpyuv.py) in place of the plain one. The
+SNS, rd_drop, skew 1 or 2, the trellis, the in-loop search, the
+sharp-YUV import (ops/sharpyuv.py) in place of the plain one, and
+uv_ac, the chroma AC quantizer delta that follows each image's mean UV
+alpha (the reference's chroma AC switch; segmented plans only). The
 quantizer, lambda and rate tables are derived here from the port's own
 lossy/ copies and moved to the device by tables_from_numpy().
 
@@ -258,13 +260,24 @@ def approx_block_rate(levels, first, pt, rt: RateTables):
 # Phase 0 — segment plan (alphas -> k-means -> SNS quants), batched.
 # ---------------------------------------------------------------------------
 
-def _uv_deltas(guv, sns):
+def _uv_deltas(guv, sns, uv_ac=False):
     """UV quantizer deltas (reference setSegmentParams,
-    encode_analysis.go:163-170): the DC delta follows the SNS strength;
-    the AC delta is off (the reference's default). Returns (dq_uv_dc int,
-    dq_uv_ac int32 tensor like guv)."""
+    encode_analysis.go:163-170). The DC delta follows the SNS strength:
+    -4 * sns // 100, clipped to +-15. The AC delta is 0 without uv_ac (the
+    reference's default); with uv_ac it follows the image's mean pre-mix
+    UV alpha guv: ((guv - 94) * 10 // 70) * sns // 100, clipped to
+    -4..6 (the reference's chroma AC switch; midpoint 94, not the host
+    analysis's 64, since this alpha reads higher). Both divisions floor,
+    as the reference's do, where libwebp truncates: at SNS 30 the DC
+    delta is -2 (libwebp's -1), and with sns > 0 every guv below 94 gives
+    a negative AC delta.
+    Returns (dq_uv_dc int, dq_uv_ac int32 tensor like guv, on its
+    device)."""
     dq_dc = max(-15, min(15, -4 * sns // 100))
-    return dq_dc, torch.zeros_like(guv, dtype=torch.int32)
+    if not uv_ac:
+        return dq_dc, torch.zeros_like(guv, dtype=torch.int32)
+    dq_ac = (guv.to(torch.int32) - 94) * 10 // 70
+    return dq_dc, (dq_ac * sns // 100).clamp(-4, 6)
 
 
 def _uv_rows_delta(q_idx, dq_dc, dq_ac, tabs):
@@ -395,14 +408,15 @@ def _mb_quant(seg_map, q_idx, n_mb, dq_uv=None, tabs=None):
                  "uv_seg": lamuv_s, "mode_seg": lammd_s}, seg_rows)
 
 
-def _plan_tables(seg_map, seg_q, seg_beta, guv, sns, tabs):
+def _plan_tables(seg_map, seg_q, seg_beta, guv, sns, tabs, uv_ac=False):
     """The segmented plan of a batch from its k-means results: per-image
-    quant rows (the UV rows at the dc/ac deltas), per-segment lambdas and
+    quant rows (the UV rows at the dc/ac deltas of _uv_deltas(guv, sns,
+    uv_ac)), per-segment lambdas (the UV lambda from those rows) and
     TLambdaSD. Returns (seg_map [B, n_mb], seg_q, seg_beta, qtabs
     [B, 48, 16] (type*16 + seg*4 + param), lambdas {i16, uv, i4, mode:
     [B, 4]}, tlsd4 [B, 4] or None, dq_uv [B, 2])."""
     B = seg_q.shape[0]
-    dq_dc, dq_ac = _uv_deltas(guv, sns)                        # [B]
+    dq_dc, dq_ac = _uv_deltas(guv, sns, uv_ac)                 # [B]
     qi = seg_q.long()
     seg_rows = {k: tabs.q[k][qi] for k in ("y1", "y2")}        # [B,4,4,16]
     seg_rows["uv"] = _uv_rows_delta(seg_q, dq_dc, dq_ac, tabs)
@@ -826,7 +840,7 @@ def level_histogram(lv24):
 
 def encode_band(Y, U, V, hy, hu, hv, has_above, mb_w, mb_h, esc_cap,
                 quality, segments=4, sns_strength=50, i4_blocks=True,
-                stats=None, rd_drop=1024.0):
+                stats=None, rd_drop=1024.0, uv_ac=False):
     """One row band of the flagship encoder with cross-band source halos,
     for b images of the band (the multi-device sharding unit): device
     segmentation, I16 and I4 search, and the closed-loop wavefront.
@@ -837,8 +851,10 @@ def encode_band(Y, U, V, hy, hu, hv, has_above, mb_w, mb_h, esc_cap,
     histograms [b, 256], UV-alpha sums [b], MB count) with the
     histograms, sums and count summed over every band of the image (the
     mesh's sum, the reference's psum_axis), so every band derives the
-    image's plan; None plans from this band alone (band_stats). Returns
-    the field dict plus "hist" [b, 16], the |level| histogram."""
+    image's plan; None plans from this band alone (band_stats). uv_ac:
+    the chroma AC delta from the image's mean UV alpha (_uv_deltas; the
+    summed statistics give every band the same delta). Returns the field
+    dict plus "hist" [b, 16], the |level| histogram."""
     Y, U, V = (p.to(torch.int32) for p in (Y, U, V))
     B = Y.shape[0]
     n_mb = mb_w * mb_h
@@ -850,7 +866,7 @@ def encode_band(Y, U, V, hy, hu, hv, has_above, mb_w, mb_h, esc_cap,
         plan = _plan_tables(
             *_plan_from_histo(histo, alphas, quality, sns_strength, segments),
             (uv_sum // tot_mb).to(torch.int32), sns,
-            device_tables(str(Y.device)))
+            device_tables(str(Y.device)), uv_ac)
     else:
         plan = _single_plan(quality, sns, B, n_mb, Y.device)
     out, lv24 = _encode_planned(Y, U, V, plan, mb_w, mb_h, i4_blocks,
@@ -1021,7 +1037,7 @@ class FastEncoder:
 
     def __init__(self, mb_w, mb_h, quality, segments, sns_strength,
                  i4_blocks, rd_drop, sharp_yuv=False, sk=1, trellis=False,
-                 i4_mode_search=False, planar=True):
+                 i4_mode_search=False, planar=True, uv_ac=False):
         self.mb_w, self.mb_h = mb_w, mb_h
         self.quality = int(quality)
         self.segments = int(segments)
@@ -1037,6 +1053,7 @@ class FastEncoder:
         self.esc_cap = max(1024, ESC_BLOCKS_PER_MB * self.n_mb)
         self.blob_spec = blob_spec_of(self.n_mb, self.esc_cap)
         self.planar = bool(planar)
+        self.uv_ac = bool(uv_ac)
 
     def _segment_plan(self, src_rows, B, tabs):
         """Phase 0 of the segmented configuration: alphas (kernel 1), the
@@ -1047,7 +1064,7 @@ class FastEncoder:
         alphas = P1.alphas_planar(src_rows, B, self.n_mb)
         return _plan_tables(*P1.plan_segments_planar(
             alphas, B, self.n_mb, self.quality, self.sns, self.segments),
-            self.sns, tabs)
+            self.sns, tabs, self.uv_ac)
 
     def part1_batched(self, Yb, Ub, Vb):
         """Phase 0 (alphas, segment plan; segmented configuration only),
@@ -1136,7 +1153,8 @@ class FastEncoder:
         if self.use_segments:
             plan = _plan_tables(*_segment_plan_device(
                 Y, U, V, self.mb_w, self.mb_h, self.quality, self.sns,
-                self.segments), self.sns, device_tables(str(Y.device)))
+                self.segments), self.sns, device_tables(str(Y.device)),
+                self.uv_ac)
         else:
             plan = _single_plan(self.quality, self.sns, B, self.n_mb,
                                 Y.device)
@@ -1201,7 +1219,8 @@ def fast_encode_fn(mb_w: int, mb_h: int, quality: int, segments: int = 1,
                    sns_strength: int = 0, i4_blocks: bool = True,
                    sharp_yuv: bool = False, rd_drop: float = 1024.0,
                    sk: int = 1, trellis: bool = False,
-                   i4_mode_search: bool = False, planar: bool = True):
+                   i4_mode_search: bool = False, planar: bool = True,
+                   uv_ac: bool = False):
     """The batched encoder for one geometry (cached). rd_drop enables the
     trellis-lite RD dropout inside the closed loop (ops/planar.py
     quantize_p); sharp_yuv imports RGB with the sharp-YUV refinement;
@@ -1212,13 +1231,18 @@ def fast_encode_fn(mb_w: int, mb_h: int, quality: int, segments: int = 1,
     in the loop on exact rates (methods 5 and 6 set sk=2 and trellis, 6
     also the search). planar=False runs the non-planar formulation
     (FastEncoder.encode_one; the reference's program with its planar path
-    switched off), which ignores the trellis and the search."""
+    switched off), which ignores the trellis and the search. uv_ac
+    derives each image's chroma AC quantizer delta from its mean UV alpha
+    (_uv_deltas; segmented configurations only: the unsegmented plan has
+    no delta), as the reference does with its chroma AC switch set; it is
+    part of the cache key (the reference's cache leaves its switch out,
+    so a toggle there reuses the stale program)."""
     if sk not in (1, 2):
         raise ValueError(f"fast_encode_fn: skew {sk} (1 or 2)")
     return _fast_encode_fn(int(mb_w), int(mb_h), int(quality), int(segments),
                            int(sns_strength), bool(i4_blocks), float(rd_drop),
                            bool(sharp_yuv), int(sk), bool(trellis),
-                           bool(i4_mode_search), bool(planar))
+                           bool(i4_mode_search), bool(planar), bool(uv_ac))
 
 
 @functools.lru_cache(maxsize=8)

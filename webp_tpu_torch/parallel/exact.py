@@ -42,11 +42,14 @@ def make_pipeline_mesh(n_devices: int = None, devices=None) -> Mesh:
 
 def make_exact_encode_fn(mesh: Mesh, n_images: int, quality: int = 75,
                          segments: int = 4, sns_strength: int = 50,
-                         i4_blocks: bool = True, rd_drop: float = 1024.0):
+                         i4_blocks: bool = True, rd_drop: float = 1024.0,
+                         uv_ac: bool = False):
     """Returns run(rgb): the exact multi-device encode of rgb [B, H, W, 3]
     uint8 (numpy or a tensor), B = n_images, H a multiple of 16 * sp.
     The outputs follow make_sharded_encode_fn's tuple (assemble them with
-    assemble_from_sharded), on the mesh's first device."""
+    assemble_from_sharded), on the mesh's first device. uv_ac: the chroma
+    AC quantizer delta from each image's mean UV alpha, summed over the
+    bands (fastpath._uv_deltas), as fast_encode_fn(..., uv_ac=True)."""
     sp = mesh.shape["sp"]
     devs = mesh.devices[0]
     B = n_images
@@ -84,7 +87,7 @@ def make_exact_encode_fn(mesh: Mesh, n_images: int, quality: int = 75,
                 *fp._plan_from_histo(histo[s], loc[s][0], quality,
                                      sns_strength, segments),
                 (uv_sum[s] // (n_mb * sp)).to(torch.int32), sns,
-                fp.device_tables(str(devs[s]))) for s in range(sp)]
+                fp.device_tables(str(devs[s])), uv_ac) for s in range(sp)]
         else:
             plans = [fp._single_plan(quality, sns, B, n_mb, d) for d in devs]
 
@@ -172,7 +175,7 @@ def make_exact_encode_fn(mesh: Mesh, n_images: int, quality: int = 75,
 def encode_lossy_mesh(images, quality: int = 75, segments: int = 4,
                       sns_strength: int = 50, n_devices: int = None,
                       true_width: int = None, true_height: int = None,
-                      devices=None):
+                      devices=None, uv_ac: bool = False):
     """Multi-device lossy encode: the band-pipelined exact closed loop over
     n_devices bands of `devices` (default: the visible cards), then the
     host's entropy coding. The bitstreams are bit-identical to the
@@ -182,8 +185,10 @@ def encode_lossy_mesh(images, quality: int = 75, segments: int = 4,
     16 * sp and W of 16 (true_width/true_height: the frame's size inside
     that padding). An image whose escape list overflowed in a band is
     re-encoded by the exact host encoder, as the single-device path does
-    (the reference raises OverflowError there). Returns the VP8 frames
-    (list of bytes)."""
+    (the reference raises OverflowError there). uv_ac: the chroma AC
+    quantizer delta (make_exact_encode_fn); the files then equal
+    encode_batch(..., uv_ac=True)'s. Returns the VP8 frames (list of
+    bytes)."""
     from ..encoder import rgb_to_yuv420
     from ..lossy.device_encode import FALLBACKS
     from ..lossy.encode import LossyConfig, VP8Encoder
@@ -196,7 +201,7 @@ def encode_lossy_mesh(images, quality: int = 75, segments: int = 4,
     if H % (16 * sp):
         raise ValueError(f"height {H} must divide by 16*sp={16 * sp}")
     step = make_exact_encode_fn(mesh, B, quality=quality, segments=segments,
-                                sns_strength=sns_strength)
+                                sns_strength=sns_strength, uv_ac=uv_ac)
     outputs = step(rgbs)
     cap = outputs[1].shape[1] // sp
     over = (outputs[3] > cap).any(dim=1).cpu().numpy()

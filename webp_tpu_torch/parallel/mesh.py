@@ -83,7 +83,8 @@ def psum(values, devs):
 
 def make_sharded_encode_fn(mesh: Mesh, quality: int = 75,
                            segments: int = 4, sns_strength: int = 50,
-                           i4_blocks: bool = True, sharp_yuv: bool = False):
+                           i4_blocks: bool = True, sharp_yuv: bool = False,
+                           uv_ac: bool = False):
     """Returns step(rgb): the multi-device encode of rgb [B, H, W, 3]
     uint8 (numpy or a tensor on any device).
 
@@ -100,7 +101,8 @@ def make_sharded_encode_fn(mesh: Mesh, quality: int = 75,
 
     sharp_yuv runs the sharp-YUV refinement band-locally: each band
     refines its own rows, clamped at the band boundary (as the
-    reference's).
+    reference's). uv_ac derives the chroma AC quantizer delta from the
+    image's mean UV alpha, summed over the bands (fastpath._uv_deltas).
     """
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
 
@@ -142,7 +144,8 @@ def make_sharded_encode_fn(mesh: Mesh, quality: int = 75,
             rows.append([fastpath.encode_band(
                 *yuv[s], halos[0][s], halos[1][s], halos[2][s], s > 0,
                 mb_w, mb_h, esc_cap, quality, segments, sns_strength,
-                i4_blocks, stats=stats[s]) for s in range(sp)])
+                i4_blocks, stats=stats[s], uv_ac=uv_ac)
+                for s in range(sp)])
         return _assemble_device(rows, mesh.devices[0][0])
 
     return step
