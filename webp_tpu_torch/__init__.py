@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import trace
 from .container.parser import Parser, get_features
 from .container.riff import Features, FormatType, WebPError
 from .encoder import (PRESETS, EncoderOptions, EncStats, check_backend,
@@ -92,6 +93,11 @@ def decode_rgba(data: bytes, backend: str = "device",
     A VP8L frame decodes in the native VP8L decoder on every backend:
     neither this package nor the reference has a device VP8L decode."""
     check_backend(backend, "decode", ("device", "host"))
+    with trace.span("decode"):
+        return _decode_rgba(data, backend, device)
+
+
+def _decode_rgba(data: bytes, backend: str, device) -> np.ndarray:
     frames = Parser(data).frames()
     if not frames:
         raise WebPError("webp: no image frame")
@@ -122,16 +128,18 @@ def decode_rgba(data: bytes, backend: str = "device",
 
 def decode(data: bytes, backend: str = "device", device=None) -> np.ndarray:
     """Decodes a WebP file: RGBA if the image has alpha, else RGB."""
-    rgba = decode_rgba(data, backend=backend, device=device)
-    f = get_features(data)
-    if f.has_alpha:
-        return rgba
-    if f.format == FormatType.VP8:
-        # A simple lossy file cannot carry alpha.
+    check_backend(backend, "decode", ("device", "host"))
+    with trace.span("decode"):
+        rgba = _decode_rgba(data, backend, device)
+        f = get_features(data)
+        if f.has_alpha:
+            return rgba
+        if f.format == FormatType.VP8:
+            # A simple lossy file cannot carry alpha.
+            return rgba[..., :3]
+        if bool((rgba[..., 3] != 255).any()):
+            return rgba
         return rgba[..., :3]
-    if bool((rgba[..., 3] != 255).any()):
-        return rgba
-    return rgba[..., :3]
 
 
 def decode_config(data: bytes) -> Features:

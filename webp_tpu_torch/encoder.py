@@ -47,6 +47,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import trace
 from .container import riff as r
 from .container.riff import WebPError
 
@@ -186,6 +187,7 @@ def check_backend(backend: str, where: str, allowed=BACKENDS) -> None:
                          f"{backend!r} (one of {allowed})")
 
 
+@trace.traced("encode")
 def encode(img, device=None, uv_ac: bool = False, **options) -> bytes:
     """Encodes an RGB(A) uint8 array [h, w, 3|4] to a WebP file. The
     device backends run on `device` (None: the card; "cpu": the plain
@@ -417,33 +419,37 @@ def _encode_lossy_frame(a: np.ndarray, opts: EncoderOptions, device,
         enc = VP8Encoder(Y, U, V, w, h, cfg)
         vp8 = enc.encode()
     else:
-        if opts.autofilter:
-            Y, U, V = _host_planes(rgb, opts, dither, False, _yuv_cache)
-            enc = DeviceVP8Encoder(Y, U, V, w, h, cfg)
-        else:
-            enc = planeless(w, h, cfg)
-        enc.dithering = dither
-        enc.rgb_input = pad_to_macroblocks(rgb[None])[0]
+        with trace.span("encode.plan"):
+            if opts.autofilter:
+                Y, U, V = _host_planes(rgb, opts, dither, False, _yuv_cache)
+                enc = DeviceVP8Encoder(Y, U, V, w, h, cfg)
+            else:
+                enc = planeless(w, h, cfg)
+            enc.dithering = dither
+            enc.rgb_input = pad_to_macroblocks(rgb[None])[0]
         vp8 = enc.encode(device=device, uv_ac=uv_ac)
-    # PSNR from the encoder's own reconstruction where it exists on the
-    # host (the reference's, lossy/encode.go:1614-1626).
-    psnr = 0.0
-    rec = enc.recY
-    if np.any(rec):
-        d = (rec.astype(np.float64) - enc.srcY.astype(np.float64)).ravel()
-        se = float(np.dot(d, d))
-        psnr = 99.0 if se == 0 else 10.0 * np.log10(255.0 ** 2 * rec.size / se)
-    LAST_STATS = EncStats(psnr=psnr, size=len(vp8), quality=opts.quality,
-                          passes=1,
-                          part0_size=getattr(enc, "stats_part0", 0),
-                          token_sizes=tuple(getattr(enc, "stats_parts", ())))
-    alpha = b""
-    if alpha_future is not None:
-        alpha = alpha_future.result()
-        LAST_STATS.alpha_size = len(alpha)
-    if not (alpha or opts.iccp or opts.exif or opts.xmp):
-        return r.assemble_riff([r.Chunk(r.VP8, vp8)])
-    return _assemble_extended(w, h, opts, vp8=vp8, alpha=alpha)
+    with trace.span("encode.wrap"):
+        # PSNR from the encoder's own reconstruction where it exists on the
+        # host (the reference's, lossy/encode.go:1614-1626).
+        psnr = 0.0
+        rec = enc.recY
+        if np.any(rec):
+            d = (rec.astype(np.float64) - enc.srcY.astype(np.float64)).ravel()
+            se = float(np.dot(d, d))
+            psnr = 99.0 if se == 0 else \
+                10.0 * np.log10(255.0 ** 2 * rec.size / se)
+        LAST_STATS = EncStats(psnr=psnr, size=len(vp8), quality=opts.quality,
+                              passes=1,
+                              part0_size=getattr(enc, "stats_part0", 0),
+                              token_sizes=tuple(getattr(enc, "stats_parts",
+                                                        ())))
+        alpha = b""
+        if alpha_future is not None:
+            alpha = alpha_future.result()
+            LAST_STATS.alpha_size = len(alpha)
+        if not (alpha or opts.iccp or opts.exif or opts.xmp):
+            return r.assemble_riff([r.Chunk(r.VP8, vp8)])
+        return _assemble_extended(w, h, opts, vp8=vp8, alpha=alpha)
 
 
 def _encode_lossless(a: np.ndarray, opts: EncoderOptions, device) -> bytes:

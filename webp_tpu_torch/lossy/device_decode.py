@@ -15,19 +15,21 @@ import concurrent.futures
 import numpy as np
 import torch
 
+from .. import trace
 from ..native import api as native
-from .device_encode import _resolve_device
+from .device_encode import _fetch, _resolve_device, _upload
 
 
 def _parse_inputs(data: bytes):
     """The native parse of one VP8 bitstream and its per-MB filter
     parameters: (parse dict, finfo [n_mb, 4] = limit, ilevel, hev
     threshold, I4 flag, inner [n_mb] bool)."""
-    P = native.vp8_parse(data)
-    tab = P["finfo"][1:].reshape(4, 2, 4)
-    fi = tab[P["segment"] & 3, P["is_i4"]]
-    inner = P["is_i4"].astype(bool) | P["has_nz"].astype(bool)
-    return P, fi, inner
+    with trace.span("decode.parse"):
+        P = native.vp8_parse(data)
+        tab = P["finfo"][1:].reshape(4, 2, 4)
+        fi = tab[P["segment"] & 3, P["is_i4"]]
+        inner = P["is_i4"].astype(bool) | P["has_nz"].astype(bool)
+        return P, fi, inner
 
 
 def _host_inputs(parsed):
@@ -49,7 +51,10 @@ def _fn(parsed, upsample: bool):
 
 
 def _run_device(parsed, upsample: bool, dev: torch.device):
-    return _fn(parsed, upsample)(*[t.to(dev) for t in _host_inputs(parsed)])
+    with trace.span("decode.upload"):
+        ins = [_upload(t, dev) for t in _host_inputs(parsed)]
+    with trace.span("device.program"):
+        return _fn(parsed, upsample)(*ins)
 
 
 def _crop(planes, dims):
@@ -65,15 +70,16 @@ def decode_vp8_yuv_device(data: bytes, device=None):
     versions."""
     parsed = _parse_inputs(data)
     out = _run_device(parsed, False, _resolve_device(device))
-    return _crop([o.cpu() for o in out], parsed[0]["dims"])
+    with trace.span("decode.fetch"):
+        return _crop(_fetch(out), parsed[0]["dims"])
 
 
 def decode_vp8_rgb_device(data: bytes, device=None) -> np.ndarray:
     """One VP8 bitstream through the device decode, fancy upsampling and
     YUV -> RGB included -> RGB uint8 [h, w, 3]."""
-    parsed = _parse_inputs(data)
-    out = _run_device(parsed, True, _resolve_device(device))
-    return out[0].cpu().numpy()
+    out = _run_device(_parse_inputs(data), True, _resolve_device(device))
+    with trace.span("decode.fetch"):
+        return _fetch([out[0]])[0]
 
 
 def decode_lossy_stream_device(datas, upsample: bool = True, device=None):
@@ -89,7 +95,8 @@ def decode_lossy_stream_device(datas, upsample: bool = True, device=None):
     on_card = dev.type == "cuda"
     side = torch.cuda.Stream(dev) if on_card else None
 
-    def upload(parsed):
+    def upload(data):
+        parsed = _parse_inputs(data)
         host = _host_inputs(parsed)
         if not on_card:
             return parsed, host, None
@@ -98,6 +105,7 @@ def decode_lossy_stream_device(datas, upsample: bool = True, device=None):
             ins = [t.to(dev, non_blocking=True) for t in staged]
             ready = torch.cuda.Event()
             ready.record(side)
+        trace.count(trace.BYTES, "h2d", sum(t.nbytes for t in staged))
         return parsed, ins, ready
 
     def launch(up):
@@ -107,7 +115,8 @@ def decode_lossy_stream_device(datas, upsample: bool = True, device=None):
             stream.wait_event(ready)
             for t in ins:
                 t.record_stream(stream)
-        out = _fn(parsed, upsample)(*ins)
+        with trace.span("device.program"):
+            out = _fn(parsed, upsample)(*ins)
         out = [out] if upsample else list(out)
         if ready is None:
             return parsed, out, None
@@ -115,6 +124,7 @@ def decode_lossy_stream_device(datas, upsample: bool = True, device=None):
                 for o in out]
         for dst, o in zip(host, out):
             dst.copy_(o, non_blocking=True)
+        trace.count(trace.BYTES, "d2h", sum(h.nbytes for h in host))
         done = torch.cuda.Event()
         done.record()
         return parsed, host, done
@@ -129,12 +139,11 @@ def decode_lossy_stream_device(datas, upsample: bool = True, device=None):
 
     results = []
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(lambda d: upload(_parse_inputs(d)), datas[0]) \
-            if datas else None
+        fut = ex.submit(trace.carry(upload), datas[0]) if datas else None
         inflight = None
         for i in range(len(datas)):
             up = fut.result()
-            fut = ex.submit(lambda d: upload(_parse_inputs(d)), datas[i + 1]) \
+            fut = ex.submit(trace.carry(upload), datas[i + 1]) \
                 if i + 1 < len(datas) else None
             out = launch(up)
             if inflight is not None:

@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..encoder import rgb_to_yuv420
 from . import tables as T
 from .encode import LossyConfig, VP8Encoder
@@ -31,6 +32,22 @@ from .encode import LossyConfig, VP8Encoder
 def _resolve_device(device) -> torch.device:
     """None means the card; an explicit "cpu" runs the plain versions."""
     return torch.device("cuda" if device is None else device)
+
+
+def _upload(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """t.to(dev), counting the bytes a copy to a CUDA device moves."""
+    if dev.type == "cuda":
+        trace.count(trace.BYTES, "h2d", t.nbytes)
+    return t.to(dev)
+
+
+def _fetch(tensors) -> list:
+    """The tensors as numpy arrays on the host (a blocking copy from the
+    device), counting the bytes a copy from a CUDA device moves."""
+    out = [t.cpu().numpy() for t in tensors]
+    if tensors[0].device.type == "cuda":
+        trace.count(trace.BYTES, "d2h", sum(a.nbytes for a in out))
+    return out
 
 
 @functools.lru_cache(maxsize=16)
@@ -111,20 +128,26 @@ class DeviceVP8Encoder(VP8Encoder):
                             trellis=self.cfg.method >= 5 and use_i4,
                             i4_mode_search=self.cfg.method >= 6 and use_i4,
                             **({"uv_ac": True} if uv_ac else {}))
-        out = fn.rgb_blob(torch.from_numpy(np.ascontiguousarray(
-            self.rgb_input[None])).to(_resolve_device(device)))
-        host = unpack_output_blob([c.cpu().numpy() for c in out],
-                                  fn.blob_spec)
+        with trace.span("encode.upload"):
+            x = _upload(torch.from_numpy(np.ascontiguousarray(
+                self.rgb_input[None])), _resolve_device(device))
+        with trace.span("device.program"):
+            out = fn.rgb_blob(x)
+        with trace.span("encode.fetch"):
+            chunks = _fetch(out)
+        with trace.span("encode.unpack"):
+            host = unpack_output_blob(chunks, fn.blob_spec)
         if int(host["esc_cnt"][0]) > fn.esc_cap:
-            FALLBACKS["images"] += 1
-            if fn.sharp_yuv:
-                Y, U, V = _fallback_planes(self.rgb_input, fn)
-            else:
-                Y, U, V = rgb_to_yuv420(
-                    self.rgb_input[:self.height, :self.width],
-                    self.dithering)
-            return VP8Encoder(Y, U, V, self.width, self.height,
-                              self.cfg).encode()
+            trace.count(FALLBACKS, "images")
+            with trace.span("fallback"):
+                if fn.sharp_yuv:
+                    Y, U, V = _fallback_planes(self.rgb_input, fn)
+                else:
+                    Y, U, V = rgb_to_yuv420(
+                        self.rgb_input[:self.height, :self.width],
+                        self.dithering)
+                return VP8Encoder(Y, U, V, self.width, self.height,
+                                  self.cfg).encode()
         return self.finish({k: v[0] for k, v in host.items()})
 
     def finish(self, out_i: dict) -> bytes:
@@ -132,19 +155,25 @@ class DeviceVP8Encoder(VP8Encoder):
         install the device's segment plan, entropy-code, assemble."""
         from ..ops.fastpath import unpack_levels
 
-        mb_w, mb_h = self.mb_w, self.mb_h
-        lv24 = unpack_levels(out_i["packed"], out_i["esc_idx"],
-                             out_i["esc_val"], out_i["esc_cnt"], mb_w * mb_h)
-        self.proba = T.COEFFS_PROBA0.copy()
-        self.levels = lv24.astype(np.int32).reshape(mb_h, mb_w, 24, 16)
-        self.y2_levels = out_i["y2"].astype(np.int32).reshape(mb_h, mb_w, 16)
-        self.imodes = out_i["imodes"].reshape(mb_h, mb_w, 16).copy()
-        self.uvmode = out_i["uvmodes"].reshape(mb_h, mb_w)
-        self.skip = out_i["skip"].reshape(mb_h, mb_w).copy()
-        self.is_i4 = out_i["is_i4"].reshape(mb_h, mb_w).copy()
-        self.apply_device_plan(out_i["seg_map"], out_i["seg_q"],
-                               out_i["seg_beta"], dq_uv=out_i.get("dq_uv"))
-        return self._finish_bitstream()
+        with trace.span("tail"):
+            mb_w, mb_h = self.mb_w, self.mb_h
+            with trace.span("tail.unpack"):
+                lv24 = unpack_levels(out_i["packed"], out_i["esc_idx"],
+                                     out_i["esc_val"], out_i["esc_cnt"],
+                                     mb_w * mb_h)
+                self.proba = T.COEFFS_PROBA0.copy()
+                self.levels = lv24.astype(np.int32).reshape(mb_h, mb_w, 24, 16)
+                self.y2_levels = out_i["y2"].astype(np.int32).reshape(
+                    mb_h, mb_w, 16)
+                self.imodes = out_i["imodes"].reshape(mb_h, mb_w, 16).copy()
+                self.uvmode = out_i["uvmodes"].reshape(mb_h, mb_w)
+                self.skip = out_i["skip"].reshape(mb_h, mb_w).copy()
+                self.is_i4 = out_i["is_i4"].reshape(mb_h, mb_w).copy()
+            with trace.span("tail.plan"):
+                self.apply_device_plan(out_i["seg_map"], out_i["seg_q"],
+                                       out_i["seg_beta"],
+                                       dq_uv=out_i.get("dq_uv"))
+            return self._finish_bitstream()
 
     def apply_device_plan(self, seg_map, seg_q, seg_beta,
                           dq_uv=None) -> None:
@@ -177,14 +206,18 @@ class DeviceVP8Encoder(VP8Encoder):
         if not self.use_skip:
             self.skip[:] = False
 
-        self._optimize_probas()
-        parts = [self._emit_tokens(i) for i in range(self.num_parts)]
+        with trace.span("tail.probas"):
+            self._optimize_probas()
+        with trace.span("tail.tokens"):
+            parts = [self._emit_tokens(i) for i in range(self.num_parts)]
         if self.cfg.autofilter:
             _finish_autofilter(self, parts)
-        part0 = self._emit_partition0()
+        with trace.span("tail.partition0"):
+            part0 = self._emit_partition0()
         self.stats_part0 = len(part0)
         self.stats_parts = [len(p) for p in parts]
-        return self._assemble_vp8(part0, parts)
+        with trace.span("tail.assemble"):
+            return self._assemble_vp8(part0, parts)
 
     def _assemble_vp8(self, part0, parts) -> bytes:
         tag = (0) | (0 << 1) | (1 << 4) | (len(part0) << 5)
@@ -225,7 +258,7 @@ def _finish_autofilter(enc, parts) -> None:
 
 # Images that took the exact host fallback since the last reset (read by
 # chip_smoke.py; it should stay 0 on natural content).
-FALLBACKS = {"images": 0}
+FALLBACKS = trace.register("fallbacks", {"images": 0})
 
 
 def pad_to_macroblocks(rgbs):
@@ -264,10 +297,10 @@ def device_blob(rgbs, quality: int = 75, segments: int = 4,
     B, H, W, _ = rgbs.shape
     fn = fast_encode_fn(W // 16, H // 16, quality, segments, sns_strength,
                         sharp_yuv=sharp_yuv, uv_ac=uv_ac)
-    x = torch.from_numpy(np.ascontiguousarray(rgbs)).to(
-        _resolve_device(device))
+    x = _upload(torch.from_numpy(np.ascontiguousarray(rgbs)),
+                _resolve_device(device))
     chunks = fn.rgb_blob(x)
-    host = unpack_output_blob([c.cpu().numpy() for c in chunks], fn.blob_spec)
+    host = unpack_output_blob(_fetch(chunks), fn.blob_spec)
     return fn, host
 
 
@@ -277,16 +310,17 @@ def _emit(host, rgbs, fn, width, height, cfg, ex):
     rgbs, imported as fn's device import) an image whose escape list
     overflowed."""
     overflow = host["esc_cnt"] > fn.esc_cap
-    FALLBACKS["images"] += int(overflow.sum())
+    trace.count(FALLBACKS, "images", int(overflow.sum()))
 
     def emit(i):
         if overflow[i]:
-            Y, U, V = _fallback_planes(rgbs[i], fn)
-            return VP8Encoder(Y, U, V, width, height, cfg).encode()
+            with trace.span("fallback"):
+                Y, U, V = _fallback_planes(rgbs[i], fn)
+                return VP8Encoder(Y, U, V, width, height, cfg).encode()
         return planeless(width, height, cfg).finish(
             {k: v[i] for k, v in host.items()})
 
-    return list(ex.map(emit, range(len(rgbs))))
+    return list(ex.map(trace.carry(emit), range(len(rgbs))))
 
 
 def encode_lossy_batch(rgbs, quality: int = 75, partitions: int = 0,
@@ -319,6 +353,7 @@ def encode_lossy_batch(rgbs, quality: int = 75, partitions: int = 0,
                      ex)
 
 
+@trace.traced("stream")
 def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
                         partitions: int = 0, filter_strength: int = 60,
                         num_threads: int = 12, host_yuv: bool = None,
@@ -413,22 +448,28 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
     side = torch.cuda.Stream(dev) if on_card else None
 
     def prep_one(img):
-        rgb = pad_to_macroblocks(img[None])[0]
-        return (rgb,) + (rgb_to_yuv420(rgb) if host_yuv else ())
+        with trace.span("stream.prep"):
+            rgb = pad_to_macroblocks(img[None])[0]
+            return (rgb,) + (rgb_to_yuv420(rgb) if host_yuv else ())
 
     def upload(imgs):
-        rgbs = [np.asarray(img)[..., :3] for img in imgs]
-        prepped = list(ex.map(prep_one, rgbs))
-        planes = [torch.from_numpy(np.stack(p)) for p in zip(*prepped)]
-        planes = planes[1:] if host_yuv else planes[:1]
-        if not on_card:
-            return rgbs, planes, None
-        staged = [p.pin_memory() for p in planes]
-        with torch.cuda.stream(side):
-            planes = [p.to(dev, non_blocking=True) for p in staged]
-            ready = torch.cuda.Event()
-            ready.record(side)
-        return rgbs, planes, ready
+        with trace.span("stream.upload"):
+            rgbs = [np.asarray(img)[..., :3] for img in imgs]
+            prepped = list(ex.map(trace.carry(prep_one), rgbs))
+            with trace.span("stream.pin"):
+                planes = [torch.from_numpy(np.stack(p))
+                          for p in zip(*prepped)]
+                planes = planes[1:] if host_yuv else planes[:1]
+                if not on_card:
+                    return rgbs, planes, None
+                staged = [p.pin_memory() for p in planes]
+                with torch.cuda.stream(side):
+                    planes = [p.to(dev, non_blocking=True) for p in staged]
+                    ready = torch.cuda.Event()
+                    ready.record(side)
+                trace.count(trace.BYTES, "h2d",
+                            sum(p.nbytes for p in staged))
+            return rgbs, planes, ready
 
     def launch(up):
         rgbs, planes, ready = up
@@ -437,13 +478,15 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
             stream.wait_event(ready)
             for p in planes:
                 p.record_stream(stream)
-        chunks = fn.blob(*planes) if host_yuv else fn.rgb_blob(planes[0])
+        with trace.span("device.program"):
+            chunks = fn.blob(*planes) if host_yuv else fn.rgb_blob(planes[0])
         if ready is None:
             return rgbs, chunks, None
         host = [torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
                 for c in chunks]
         for dst, c in zip(host, chunks):
             dst.copy_(c, non_blocking=True)
+        trace.count(trace.BYTES, "d2h", sum(c.nbytes for c in host))
         done = torch.cuda.Event()
         done.record()
         return rgbs, host, done
@@ -458,7 +501,7 @@ def encode_lossy_stream(images, quality: int = 75, batch: int = 8,
         inflight = None
         for i in range(len(batches)):
             out = launch(up)
-            up_fut = (up_ex.submit(upload, batches[i + 1])
+            up_fut = (up_ex.submit(trace.carry(upload), batches[i + 1])
                       if i + 1 < len(batches) else None)
             if inflight is not None:
                 results.extend(_drain(inflight, fn, w, h, cfg, ex))
@@ -474,8 +517,12 @@ def _drain(inflight, fn, width, height, cfg, ex):
     entropy-codes it on the pool."""
     from ..ops.fastpath import unpack_output_blob
 
-    rgbs, chunks, done = inflight
-    if done is not None:
-        done.synchronize()
-    host = unpack_output_blob([c.numpy() for c in chunks], fn.blob_spec)
-    return _emit(host, rgbs, fn, width, height, cfg, ex)
+    with trace.span("stream.drain"):
+        rgbs, chunks, done = inflight
+        if done is not None:
+            with trace.span("stream.fetch_wait"):
+                done.synchronize()
+        with trace.span("encode.unpack"):
+            host = unpack_output_blob([c.numpy() for c in chunks],
+                                      fn.blob_spec)
+        return _emit(host, rgbs, fn, width, height, cfg, ex)

@@ -7,7 +7,7 @@ current stream. A kernel wrapper (ops/p1_kernels.py, ops/i4_kernel.py,
 ops/p2_kernel.py) checks its tensors with `check`, takes its plain
 PyTorch version only when `on_cpu` says the tensors lie on the CPU, and
 otherwise calls `launch`, which raises on a refused launch and counts it
-in LAUNCHES.
+in LAUNCHES (the "launches" group of trace.COUNTERS).
 """
 
 from __future__ import annotations
@@ -16,11 +16,12 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 # Launches per kernel since the last reset (a plain count, read by
 # chip_smoke.py to show that the main path went through every kernel).
-LAUNCHES = {name: 0 for name in _build.KERNEL_LIBS}
+LAUNCHES = trace.register("launches",
+                          {name: 0 for name in _build.KERNEL_LIBS})
 
 
 def reset_launches() -> None:
@@ -101,4 +102,4 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with "
                            + LAUNCHER_ERRORS.get(err, f"CUDA error {err}"))
-    LAUNCHES[name] += 1
+    trace.count(LAUNCHES, name)

@@ -41,6 +41,7 @@ import functools
 
 import torch
 
+from .. import trace
 from . import dct
 from .fastpath import _preds4, _unblock
 from .i4 import pred4_all
@@ -539,6 +540,7 @@ class _StepLoop:
             # one stream, made on whichever card was current at first use).
             with torch.cuda.graph(g, stream=torch.cuda.Stream(self.dev)):
                 self._body()
+            trace.count(trace.PROGRAMS, "built")
             self.graph = g
             for _ in range(self.n_steps - 1):
                 g.replay()
@@ -584,6 +586,7 @@ class DecodeFn:
             device = torch.device("cuda", torch.cuda.current_device())
         key = (B, str(device))
         if key not in self._loops:
+            trace.count(trace.PROGRAMS, "built")
             self._loops[key] = _StepLoop(self.mb_w, self.mb_h,
                                          self.filter_type, B, device)
         return self._loops[key]

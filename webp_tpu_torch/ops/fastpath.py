@@ -49,6 +49,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from .. import trace
 from ..lossy import tables as T
 from ..lossy.cost import (
     ENTROPY_COST,
@@ -1247,5 +1248,6 @@ def fast_encode_fn(mb_w: int, mb_h: int, quality: int, segments: int = 1,
 
 @functools.lru_cache(maxsize=8)
 def _fast_encode_fn(*args):
+    trace.count(trace.PROGRAMS, "built")
     return FastEncoder(*args)
 

@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..lossy import tables as T
 from ..lossy.encode import FIXED_COSTS_I16 as FC16
 from ..lossy.encode import FIXED_COSTS_UV as FCUV
@@ -1078,6 +1079,7 @@ def phase2_planar(Y, U, V, modes, uvmodes, qp, mb_w, mb_h, rd_drop=0.0,
         # one stream, made on whichever card was current at its first use).
         with torch.cuda.graph(g, stream=torch.cuda.Stream(dev)):
             body()
+        trace.count(trace.PROGRAMS, "built")
         for _ in range(n_steps - 1):
             g.replay()
     else:

@@ -189,6 +189,7 @@ def encode_lossy_mesh(images, quality: int = 75, segments: int = 4,
     quantizer delta (make_exact_encode_fn); the files then equal
     encode_batch(..., uv_ac=True)'s. Returns the VP8 frames (list of
     bytes)."""
+    from .. import trace
     from ..encoder import rgb_to_yuv420
     from ..lossy.device_encode import FALLBACKS
     from ..lossy.encode import LossyConfig, VP8Encoder
@@ -205,7 +206,7 @@ def encode_lossy_mesh(images, quality: int = 75, segments: int = 4,
     outputs = step(rgbs)
     cap = outputs[1].shape[1] // sp
     over = (outputs[3] > cap).any(dim=1).cpu().numpy()
-    FALLBACKS["images"] += int(over.sum())
+    trace.count(FALLBACKS, "images", int(over.sum()))
     keep = torch.as_tensor(np.flatnonzero(~over), device=outputs[0].device)
     per_image = assemble_from_sharded(
         [o[keep] for o in outputs[:-1]] + [outputs[-1]], sp=sp,
