@@ -5,7 +5,7 @@
 Phases, each of which raises on failure (the script then exits nonzero):
 
   1. The card's name and power limit (nvidia-smi) and torch's device name.
-  2. Builds the four CUDA kernels (nvcc, sm_90a) and the host libraries
+  2. Builds the five CUDA kernels (nvcc, sm_90a) and the host libraries
      (entropy coder and YUV importer; the VP8 and VP8L decoders and the
      upsampler; the VP8L encoder's coder and searches; the PNG reader's
      row unfilter; g++) from the
@@ -15,7 +15,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
      1536x1024 images (made from --seed), with every kernel's launch count
      set to 0 just before and read just after; each kernel must have run
      exactly once (one batch). Every output must carry a RIFF/WEBP/VP8
-     header of the right size.
+     header of the right size; the decode kernel never launched.
   4. Each kernel at the main path's shapes (its inputs recorded during the
      counted run) against its plain PyTorch version on the same card
      tensors: decisions, alphas and every phase-2 output exact, f32 scores
@@ -63,16 +63,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
      YUV (equal where the planes are).
  10. Decoding. 1536x1024 bitstreams from encode() on the card (the
      defaults, method 6, the simple filter, no filter) decoded by
-     decode_rgba on the card (the host's token parse, then the skew-2 step
-     loop of reconstruction and loop filter replayed from a CUDA graph,
-     and the upsampling) equal the native decoder's pixels, with every
-     kernel's launch count 0 while decoding (the decode runs none of the
-     four); ms per image on both backends, the step loop's ms per step
-     with the graph and once without it; the pipelined decode stream over
-     32 images against 32 single decodes; card == CPU decodes at 64x48,
-     72x40 and 33x17 on every filter branch; encode() with autofilter,
-     target_size and target_psnr at full width (card == CPU at 64x48) and
-     with backend="host" (host time).
+     decode_rgba on the card (the host's token parse, then one launch of
+     the decode kernel, the skew-2 wavefront of reconstruction and loop
+     filter, and the upsampling) equal the native decoder's pixels, with
+     the decode kernel launched once and no encode kernel; ms per image
+     on both backends; the decode kernel's card time at B=1 beside its
+     bound and ms per anti-diagonal step, and at B=16 (each image equal
+     to its B=1 decode); its plain version (the step loop on the card,
+     one run) equal to it on the defaults' file, with its time; the
+     pipelined decode stream over 32 images against 32 single decodes
+     (the kernel once per image); card == CPU decodes at 64x48, 72x40 and
+     33x17 on every filter branch; encode() with autofilter, target_size
+     and target_psnr at full width (card == CPU at 64x48) and with
+     backend="host" (host time).
  11. Lossless and alpha (lossless()). A 1536x1024 RGBA image (soft
      alpha edges, transparent areas, a noisy region) through encode() at
      the defaults on the card: kernels 1-4 once each, the ALPH plane
@@ -104,7 +107,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
      of the three files on both backends and AnimDecoder on the card
      (canvases equal across backends and to the CPU compositor's, the
      lossless canvases equal to the source, the lossy files' PSNR by
-     ops/metrics on the card; ms per frame; no kernel); the device
+     ops/metrics on the card; ms per frame; the decode kernel once per
+     lossy frame, no encode kernel); the device
      decode's programs per frame geometry and a first-seen against a
      repeated geometry's ms; card files and canvases against the CPU's at
      64x48 and 72x40; ops/metrics card against CPU on 1280x720 planes.
@@ -133,7 +137,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
      writer and reader (read_png timed, pixels equal); the command line
      tool in this process, `enc in.png out.webp` counted (each kernel
      once; the file equal to encode(img)'s; wall seconds and the PNG
-     read's share), `dec` (no kernel; the host decoder's pixels), an RGBA
+     read's share), `dec` (the decode kernel once; the host decoder's
+     pixels), an RGBA
      image through enc/dec and enc -lossless -exact/dec, `info` on VP8,
      VP8X+ALPH and VP8L files; `python -m webp_tpu_torch.cli enc|dec|
      info` in fresh processes (exit 0, the same files); the CLI on the
@@ -254,19 +259,60 @@ def _ops_p2(n_i16, n_i4, n_mb):
     return n_i16 * i16 + n_i4 * i4 + n_mb * (8 * blk + 32)
 
 
+# One edge of the loop filter on one line of pixels: the normal filter's
+# mask, high-variance test and three candidate results (~60 operations, as
+# ops/decode.py _filter_edge counts them), the simple filter's ~20.
+_EDGE_NORMAL, _EDGE_SIMPLE = 60, 20
+
+
+def _ops_decode(P, limit, inner, ftype, mb_w):
+    """The decode kernel's integer operations for one parsed frame (P from
+    vp8_parse, per-MB limit and inner flags): per MB 24 inverse DCTs and
+    reconstructions and the two contour sums, an I4 subblock its contour's
+    smoothed strips (110); per filtered edge 16 luma lines (the MB edge
+    where there is a left or upper MB, 3 inner edges a direction where
+    inner) and, with the normal filter, 16 chroma lines (the MB edge, 1
+    inner edge a direction), where the MB's limit is not 0."""
+    n_mb = len(limit)
+    ops = n_mb * (24 * (_IDCT + _REC) + 64) + int(P["is_i4"].sum()) * 16 * 110
+    if ftype:
+        en = limit > 0
+        m = np.arange(n_mb)
+        mb_edges = int((en & (m % mb_w > 0)).sum() + (en & (m >= mb_w)).sum())
+        n_in = int((en & inner).sum())
+        if ftype == 1:
+            ops += 16 * (mb_edges + 6 * n_in) * _EDGE_SIMPLE
+        else:
+            ops += 16 * (2 * mb_edges + 8 * n_in) * _EDGE_NORMAL
+    return ops
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations")
 
 
+# The decode's kernel; the other four are the lossy encode's.
+DECODE_KERNEL = "decode_wavefront"
+
+
 def check_per_batch(launches, n_batches, what):
-    """Every kernel of the path must have launched once per batch."""
-    if set(launches.values()) != {n_batches}:
+    """Every encode kernel of the path must have launched once per batch,
+    the decode kernel never."""
+    enc = {k: v for k, v in launches.items() if k != DECODE_KERNEL}
+    if set(enc.values()) != {n_batches} or launches.get(DECODE_KERNEL):
         raise AssertionError(f"{what}: launches {launches}, expected "
-                             f"{n_batches} of each (one per batch)")
+                             f"{n_batches} of each encode kernel (one per "
+                             f"batch) and no {DECODE_KERNEL}")
     print(f"{what}: launches {launches}, one per batch of {n_batches}",
           flush=True)
+
+
+def decode_launches(launches, n):
+    """{each encode kernel: 0, the decode kernel: n}: the launches of n
+    device decodes of lossy frames and no encode."""
+    return {k: n if k == DECODE_KERNEL else 0 for k in launches}
 
 
 def card_info():
@@ -484,7 +530,7 @@ def single_image(seed, card, hold):
                 else webp_tpu_torch.EncoderOptions(**opts)
             want = {"p1_alpha": int(o.segments > 1 and n_mb >= 4),
                     "p1_mode": 1, "i4_search": int(o.method >= 3),
-                    "p2_wavefront": 1}
+                    "p2_wavefront": 1, DECODE_KERNEL: 0}
             KC.reset_launches()
             on_card = webp_tpu_torch.encode(small, options=o)
             if dict(KC.LAUNCHES) != want:
@@ -544,7 +590,8 @@ def quality_modes(seed, card, hold, imgs):
     img = synth_images(rng, 1, H, W)[0]
     x = torch.as_tensor(img[None]).cuda()
     steps = W // 16 + 2 * (H // 16 - 1)
-    want = {"p1_alpha": 1, "p1_mode": 1, "i4_search": 1, "p2_wavefront": 0}
+    want = {"p1_alpha": 1, "p1_mode": 1, "i4_search": 1, "p2_wavefront": 0,
+            DECODE_KERNEL: 0}
     quality, rec3 = {}, None
     for method in (5, 6):
         with Recorder(P1K, "alphas") as r_a, \
@@ -679,14 +726,19 @@ def decoding(seed, card, imgs):
     the card at the defaults (the normal loop filter), at method 6 (I4
     rich), with the simple filter and without a filter: decode_rgba on the
     card (backend="device") equals the native decoder's (backend="host")
-    on each, with every kernel launch count 0 while decoding; ms per image
-    on both backends, the step loop's ms per step replayed from its CUDA
-    graph and, once, without it; decode_lossy_stream_device over 32
-    images against 32 single decodes; the card's decode against the CPU's
-    plain versions at 64x48, 72x40 and 33x17 on the three filter
+    on each, with one launch of the decode kernel and no encode kernel
+    while decoding; ms per image on both backends; the decode kernel's
+    card time at B=1 (runs queued, and per call from an idle card) beside
+    its bound and its dependency chain (ms per step), and on the defaults'
+    file at B=16 (with the main path's images), each image equal to its
+    B=1 decode, and the plain version (the step loop on the card, one
+    run) equal to the kernel, with its time; decode_lossy_stream_device
+    over 32 images against 32 single decodes; the card's decode against
+    the CPU's plain versions at 64x48, 72x40 and 33x17 on the three filter
     branches; autofilter and rate control on the card (wall time, passes,
     size or PSNR against the target at full width; card == CPU files at
-    64x48); encode(backend="host") on the host."""
+    64x48); encode(backend="host") on the host. Returns the decode
+    kernel's record for the kernels' JSON line."""
     import dataclasses
 
     import webp_tpu_torch
@@ -695,11 +747,26 @@ def decoding(seed, card, imgs):
     from webp_tpu_torch.lossy import decode as DEC
     from webp_tpu_torch.lossy import device_decode as DD
     from webp_tpu_torch.ops import cuda as KC
+    from webp_tpu_torch.ops import p2_kernel as P2K
 
     rng = np.random.default_rng(seed + 10)
     img = synth_images(rng, 1, H, W)[0]
     px = W * H
+    mb_w, mb_h = W // 16, H // 16
+    n_sm = P2K.sm_count(CARD)
+    bss = [Parser(f).frames()[0].bitstream
+           for f in webp_tpu_torch.encode_batch(list(imgs), QUALITY)]
+
+    def card_inputs(streams):
+        """DecodeFn of the planes and its inputs on the card, the parsed
+        bitstreams stacked on the batch axis."""
+        parsed = [DD._parse_inputs(b) for b in streams]
+        ins = [torch.cat(ts).to(CARD) for ts in zip(
+            *[DD._host_inputs(q) for q in parsed])]
+        return DD._fn(parsed[0], False), ins
+
     files = {}
+    record = None
     for label, opts in (("normal filter (defaults)", {}),
                         ("method 6", dict(method=6)),
                         ("simple filter", dict(filter_type=0)),
@@ -707,15 +774,14 @@ def decoding(seed, card, imgs):
         files[label], enc_s = once(lambda: webp_tpu_torch.encode(img, **opts))
         check_webp(files[label], W, H)
         bs = Parser(files[label]).frames()[0].bitstream
-        parsed = DD._parse_inputs(bs)
-        ftype = int(parsed[0]["finfo"][0])
-        n_i4 = int(parsed[0]["is_i4"].sum())
+        P, fi, inner = DD._parse_inputs(bs)
+        ftype = int(P["finfo"][0])
+        n_i4 = int(P["is_i4"].sum())
         KC.reset_launches()
         dev, first_s = once(lambda: webp_tpu_torch.decode_rgba(files[label]))
         launches = dict(KC.LAUNCHES)
-        if any(launches.values()):
-            raise AssertionError(f"decode {label}: kernels launched "
-                                 f"{launches}")
+        check_launches(launches, decode_launches(launches, 1),
+                       f"decode {label}")
         host = webp_tpu_torch.decode_rgba(files[label], backend="host")
         if not np.array_equal(dev, host):
             raise AssertionError(f"decode {label}: device and host pixels "
@@ -723,53 +789,69 @@ def decoding(seed, card, imgs):
         dev_s = wall_s(lambda: webp_tpu_torch.decode_rgba(files[label]), 3)
         host_s = wall_s(lambda: webp_tpu_torch.decode_rgba(
             files[label], backend="host"), 3)
-        fn = DD._fn(parsed, True)
-        ins = [t.to(CARD) for t in DD._host_inputs(parsed)]
-        prog_s = wall_s(lambda: fn(*ins), 3)
-        # The step loop alone, on the inputs of this bitstream.
-        xs = {}
-        loop = fn.loop(1, ins[0].device)
-        orig = loop.run
-
-        def grab(x, graph):
-            xs.update(x)
-            return orig(x, graph)
-        loop.run = grab
-        try:
-            fn(*ins)
-        finally:
-            del loop.run
-        if not xs:
-            raise AssertionError("the decode did not run the step loop")
-        loop_s = wall_s(lambda: loop.run(xs, True), 3)
-        eager = ""
+        # The kernel alone, on this file's inputs resident on the card.
+        fn, ins = card_inputs([bs])
+        ms1 = time_ms(lambda: fn(*ins), 20)
+        call_ms = time_ms(lambda: fn(*ins), 20, queued=False)
+        one = fn(*ins)
+        n_bytes = sum(t.numel() * t.element_size() for t in ins) + 384 * (
+            mb_w * mb_h)
+        bd, by = bound_ms(n_bytes, _ops_decode(P, fi[:, 0], inner, ftype,
+                                               mb_w))
+        batch = ""
         if label.startswith("normal"):
-            _, eager_s = once(lambda: loop.run(xs, False))
-            eager = (f"; without the graph {eager_s:.3f} s, "
-                     f"{eager_s / fn.steps * 1e3:.3f} ms per step")
-            if not np.array_equal(webp_tpu_torch.decode_rgba(files[label]),
-                                  host):
-                raise AssertionError("decode after the eager run differs")
+            # B=16: this file and the main path's images 1-15 (the same
+            # filter type: one per launch).
+            b16 = [bs] + bss[1:]
+            fn16, ins16 = card_inputs(b16)
+            ms16 = time_ms(lambda: fn16(*ins16), 10)
+            got16 = fn16(*ins16)
+            for i, b in enumerate(b16):
+                alone = fn16(*card_inputs([b])[1]) if i else one
+                if not all(torch.equal(g[i], a[0])
+                           for g, a in zip(got16, alone)):
+                    raise AssertionError(f"decode kernel: image {i} of the "
+                                         "B=16 launch differs from its B=1 "
+                                         "decode")
+            ref, plain_s = once(lambda: fn.plain(*ins))
+            if not all(torch.equal(g, r) for g, r in zip(one, ref)):
+                raise AssertionError("decode kernel: disagrees with its "
+                                     "plain version")
+            C1 = P2K.cluster_size(1, mb_h, n_sm)
+            C16 = P2K.cluster_size(B, mb_h, n_sm)
+            batch = (f"; B={B} {ms16:.4f} ms on the card "
+                     f"({ms16 / B:.4f} ms per image, cluster size {C16}, "
+                     f"{B * C16} blocks), each image equal to its B=1 "
+                     f"decode; the plain version (the step loop on the "
+                     f"card, one run) {plain_s * 1e3:.1f} ms, equal to the "
+                     f"kernel; cluster size {C1} at B=1")
+            record = dict(
+                name=DECODE_KERNEL, route="cuda",
+                source=f"webp_tpu_torch/csrc/{DECODE_KERNEL}.cu",
+                replaces="none: webp_tpu/ops/decode.py is a jnp step loop",
+                launches=launches[DECODE_KERNEL], max_abs_err=0.0, ms=ms1,
+                call_ms=call_ms, ms_b16=ms16, plain_ms=plain_s * 1e3,
+                bound_ms=bd, bound_by=by, steps=fn.steps,
+                ms_per_step=ms1 / fn.steps, cluster_size=C1,
+                library_ms=None)
         print(f"decode {label}: {W}x{H}, {len(files[label])} bytes (encode() "
               f"on the card {enc_s:.3f} s), filter type {ftype}, {n_i4} I4 "
               f"MBs; device == host pixels; launches while decoding "
               f"{launches}; decode_rgba on the card {dev_s * 1e3:.1f} ms per "
-              f"image (first call, graph capture included, "
-              f"{first_s * 1e3:.1f} ms), its device program (inputs "
-              f"resident) {prog_s * 1e3:.1f} ms, the step loop "
-              f"{loop_s * 1e3:.1f} ms for {fn.steps} steps, "
-              f"{loop_s / fn.steps * 1e3:.3f} ms per step replayed{eager}; "
-              f"the native host decoder {host_s * 1e3:.1f} ms per image "
-              f"(host time); {card}", flush=True)
+              f"image (first call {first_s * 1e3:.1f} ms); the native host "
+              f"decoder {host_s * 1e3:.1f} ms per image (host time); "
+              f"kernel {DECODE_KERNEL} B=1 {ms1:.4f} ms on the card (runs "
+              f"queued), {call_ms:.4f} ms per call from an idle card, "
+              f"{fn.steps} steps ({ms1 / fn.steps * 1e3:.2f} us per step: "
+              f"the dependency chain), bound {bd:.4f} ms by {by} "
+              f"({n_bytes} bytes){batch}; {card}", flush=True)
 
     # The stream over 32 images against 32 single decodes.
-    files32 = webp_tpu_torch.encode_batch(list(imgs) + list(imgs), QUALITY)
-    bss = [Parser(f).frames()[0].bitstream for f in files32]
+    bss = bss + bss
     KC.reset_launches()
     outs, stream_s = once(lambda: DD.decode_lossy_stream_device(bss))
-    if any(KC.LAUNCHES.values()):
-        raise AssertionError(f"decode stream: kernels launched "
-                             f"{dict(KC.LAUNCHES)}")
+    check_launches(dict(KC.LAUNCHES), decode_launches(KC.LAUNCHES, len(bss)),
+                   "decode stream")
     singles, single_s = once(lambda: [DD.decode_vp8_rgb_device(b)
                                       for b in bss])
     for o, g, b in zip(outs, singles, bss[:2]):
@@ -837,6 +919,7 @@ def decoding(seed, card, imgs):
     print(f"encode backend=host: {W}x{H} {host_s:.3f} s wall on the card "
           f"machine's host CPU (host time, no device), {len(data)} bytes, "
           f"PSNR {ENC.LAST_STATS.psnr:.3f} dB", flush=True)
+    return record
 
 
 def alpha_plane(rng, h, w):
@@ -975,9 +1058,13 @@ def lossless(seed, card, w=W, h=H, dev=CARD):
               flush=True)
         if label.startswith("large") and not lone:
             raise AssertionError("the noise image made no lone-symbol tree")
-    if any(out["lossless_encode"].values()) or any(out["decode"].values()):
-        raise AssertionError(f"kernels launched outside the lossy encode: "
-                             f"{out}")
+    # One device decode of a lossy frame (the RGBA file); the VP8L
+    # decodes are host work.
+    n_dec = int(torch.device(dev).type == "cuda")
+    if any(out["lossless_encode"].values()) or \
+            out["decode"] != decode_launches(out["decode"], n_dec):
+        raise AssertionError(f"kernels launched outside the lossy encode "
+                             f"and decode: {out}")
 
     # predictor_search on the card against the native predictor.
     argb = LE.subtract_green(LE.rgba_to_argb(rgba))
@@ -1108,8 +1195,9 @@ def animation(seed, card, w=ANIM_W, h=ANIM_H, n=ANIM_N, dev=CARD,
     decode_animation of the three files on both backends and AnimDecoder
     on the card (canvases equal across backends and to a CPU
     compositor's; the lossless file's canvases equal the source; the lossy
-    files' PSNR by ops/metrics on the card; no kernel); the device
-    decode's programs per frame geometry; card against CPU files and
+    files' PSNR by ops/metrics on the card; the decode kernel once per
+    lossy frame, no encode kernel); the device decode's programs per
+    frame geometry; card against CPU files and
     canvases at the small sizes; ops/metrics card against CPU on full-size
     planes. Returns the kernels' launches in the phase: {"device_encode":
     {...}, "anim_encoder": {...}, "decode": {...}}."""
@@ -1231,9 +1319,11 @@ def animation(seed, card, w=ANIM_W, h=ANIM_H, n=ANIM_N, dev=CARD,
     KC.reset_launches()
     info0 = OD.decode_fn.cache_info()
     canvases = {}
+    n_lossy = 0
     for name, data in files.items():
-        lossy_geoms = {(f.width, f.height) for f in Parser(data).frames()
-                       if not f.is_lossless}
+        lossy = [f for f in Parser(data).frames() if not f.is_lossless]
+        lossy_geoms = {(f.width, f.height) for f in lossy}
+        n_lossy += len(lossy)
         on_card, card_s = once(lambda: A.decode_animation(data, device=dev))
         on_host, host_s = once(lambda: A.decode_animation(data,
                                                           backend="host"))
@@ -1275,9 +1365,12 @@ def animation(seed, card, w=ANIM_W, h=ANIM_H, n=ANIM_N, dev=CARD,
         print(f"animation: {name} canvases against the source (RGB, "
               f"ops/metrics on the card): PSNR min {min(psnr):.2f} dB, "
               f"median {statistics.median(psnr):.2f} dB", flush=True)
-    if any(out["anim_encoder"].values()) or any(out["decode"].values()):
-        raise AssertionError(f"kernels launched outside the device encode: "
-                             f"{out}")
+    # The decode kernel once per lossy frame decoded on the card.
+    n_dec = n_lossy if torch.device(dev).type == "cuda" else 0
+    if any(out["anim_encoder"].values()) or \
+            out["decode"] != decode_launches(out["decode"], n_dec):
+        raise AssertionError(f"kernels launched outside the device encode "
+                             f"and decode: {out}")
     geoms = {(f.width, f.height) for d in files.values()
              for f in Parser(d).frames() if not f.is_lossless}
     print(f"animation: device decode programs: {len(geoms)} distinct lossy "
@@ -1714,11 +1807,12 @@ def host_surface(seed, card, w=W, h=H, dev=CARD,
     (b) cli.main(["enc", in.png, out.webp]) in this process, counted (each
         kernel once, as encode() at the defaults), its file equal to
         webp_tpu_torch.encode(img); wall seconds and the PNG read's share;
-    (c) cli.main(["dec", out.webp, back.png]): no kernel, pixels equal to
-        decode(data, backend="host"); ms;
+    (c) cli.main(["dec", out.webp, back.png]): the decode kernel once,
+        pixels equal to decode(data, backend="host"); ms;
     (d) an RGBA image (phase 11's alpha_plane) through enc -> dec (an RGBA
         PNG with the source's alpha; kernels once) and enc -lossless
-        -exact -> dec (equal to the source; no kernel);
+        -exact -> dec (equal to the source; no encode kernel, the decode
+        kernel only for the lossy RGBA file);
     (e) info on the VP8, VP8X+ALPH and VP8L files, its lines printed;
     (f) `python -m webp_tpu_torch.cli enc|dec|info` as subprocesses from
         the repository's root (the module entry on the card by default,
@@ -1801,7 +1895,7 @@ def host_surface(seed, card, w=W, h=H, dev=CARD,
               f"({read_s / enc_s:.1%}); {len(data)} bytes, equal to "
               f"encode(img); launches {launches['enc']}; {card}", flush=True)
 
-        # (c) dec: no kernel, the host decoder's pixels.
+        # (c) dec: the decode kernel once, the host decoder's pixels.
         KC.reset_launches()
         run(["dec"] + dev_arg + [p["out.webp"], p["back.png"]])
         launches["dec"] = dict(KC.LAUNCHES)
@@ -1835,8 +1929,10 @@ def host_surface(seed, card, w=W, h=H, dev=CARD,
         run(["dec"] + dev_arg + [p["ll.webp"], p["ll_back.png"]])
         for k, v in KC.LAUNCHES.items():
             launches["dec"][k] += v
-        check_launches(launches["dec"], {k: 0 for k in KC.LAUNCHES},
-                       "cli dec")
+        # Two lossy files (RGB, RGBA) decoded on the device; VP8L on the
+        # host.
+        check_launches(launches["dec"], decode_launches(
+            KC.LAUNCHES, 2 if dev == CARD else 0), "cli dec")
         got = png.read_png(read(p["rgba_back.png"]))
         if got.shape != rgba.shape or not np.array_equal(got[..., 3],
                                                          rgba[..., 3]):
@@ -2388,26 +2484,26 @@ def main(argv=None):
     rec3, quality = quality_modes(args.seed, card, hold, imgs)
 
     # 10. Decoding on the card, and the options the decoder unblocks.
-    decoding(args.seed, card, imgs)
+    dec = decoding(args.seed, card, imgs)
     k3 = next(k for k in kernels if k["name"] == "i4_search")
     k3["quality_launches"] = {m: v["i4_search"] for m, v in quality.items()}
     k3["quality_ms"], k3["quality_plain_ms"] = rec3["ms"], rec3["plain_ms"]
 
     # 11. Lossless and alpha.
     phase11 = lossless(args.seed, card)
-    for k in kernels:
+    for k in kernels + [dec]:
         k["lossless_launches"] = {part: v[k["name"]]
                                   for part, v in phase11.items()}
 
     # 12. Animation.
     phase12 = animation(args.seed, card)
-    for k in kernels:
+    for k in kernels + [dec]:
         k["animation_launches"] = {part: v[k["name"]]
                                    for part, v in phase12.items()}
 
     # 13. The band encoders.
     phase13 = bands(args.seed, card)
-    for k in kernels:
+    for k in kernels + [dec]:
         k["band_launches"] = {part: v[k["name"]]
                               for part, v in phase13["launches"].items()}
         k.update(phase13["band"].get(k["name"], {}))
@@ -2415,7 +2511,7 @@ def main(argv=None):
 
     # 14. The host surface: the CLI on the card, PNG, the rescaler.
     phase14 = host_surface(args.seed, card)
-    for k in kernels:
+    for k in kernels + [dec]:
         k["host_surface_launches"] = {part: v[k["name"]]
                                       for part, v in phase14.items()}
 
@@ -2423,11 +2519,13 @@ def main(argv=None):
     phase15 = uv_ac(args.seed, card, imgs, files_off=files,
                     main_ms={k["name"]: k["ms"] for k in kernels})
     for k in kernels:
+        k["uv_ac_ms"] = phase15["ms"][k["name"]]
+    for k in kernels + [dec]:
         k["uv_ac_launches"] = {part: v[k["name"]] for part, v in
                                phase15["launches"].items()}
-        k["uv_ac_ms"] = phase15["ms"][k["name"]]
+    dec["stream_launches"] = stream_launches[DECODE_KERNEL]
 
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + [dec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

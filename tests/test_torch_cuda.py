@@ -35,6 +35,14 @@ def _images(n, h, w, seed):
     return out
 
 
+def encode_launches():
+    """The launch counts of the four encode kernels (every kernel but the
+    decode's)."""
+    from webp_tpu_torch.ops import cuda
+
+    return {k: v for k, v in cuda.LAUNCHES.items() if k != "decode_wavefront"}
+
+
 def p2_inputs(B, W, H, seed):
     """Phase-2 inputs (numpy, the port's quant tables): source planes (a
     ramp, a noisy half, flat and striped chroma), random modes, I4 split
@@ -142,8 +150,10 @@ def test_kernels_and_files_on_the_card_equal_plain_versions():
             setattr(k[0], k[1], recorder(k))
         cuda.reset_launches()
         on_card = webp_tpu_torch.encode_batch(imgs, 75, device="cuda")
-        assert all(n > 0 for n in cuda.LAUNCHES.values()), cuda.LAUNCHES
+        assert all(n > 0 for n in encode_launches().values()), \
+            cuda.LAUNCHES
         assert cuda.LAUNCHES["p2_wavefront"] == 1
+        assert cuda.LAUNCHES["decode_wavefront"] == 0
     finally:
         for k, f in saved.items():
             setattr(k[0], k[1], f)
@@ -377,7 +387,7 @@ def test_quality_methods_on_the_card_equal_the_cpu(geom, method):
     got = webp_tpu_torch.encode(img, method=method)
     assert dict(cuda.LAUNCHES) == {
         "p1_alpha": int(w * h >= 4 * 256), "p1_mode": 1, "i4_search": 1,
-        "p2_wavefront": 0}
+        "p2_wavefront": 0, "decode_wavefront": 0}
     assert got == webp_tpu_torch.encode(img, device="cpu", method=method)
 
 
@@ -441,12 +451,16 @@ def test_stream_on_the_card_equals_encode_batch():
         webp_tpu_torch.encode_batch(imgs, 75, device="cuda")
 
 
-def _vp8(img, **opts):
-    """The VP8 bitstream of the port's host encode of img."""
+def _bitstream(data):
+    """The VP8 bitstream of a WebP file's first frame."""
     from webp_tpu_torch.container.parser import Parser
 
-    data = webp_tpu_torch.encode(img, backend="host", **opts)
     return Parser(data).frames()[0].bitstream
+
+
+def _vp8(img, **opts):
+    """The VP8 bitstream of the port's host encode of img."""
+    return _bitstream(webp_tpu_torch.encode(img, backend="host", **opts))
 
 
 # The three branches of the device decode: the normal filter, the simple
@@ -466,9 +480,10 @@ DECODE_CASES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(DECODE_CASES))
 def test_device_decode_on_the_card_equals_host_decoder(name):
-    """The device decode on the card (its steps replayed from a CUDA
-    graph) gives the native decoder's planes and RGB, launches none of the
-    four encode kernels, and equals the same loop without the graph."""
+    """The device decode on the card (the decode kernel, launched once per
+    decode) gives the native decoder's planes and RGB and the plain
+    version's planes on the CPU, launches none of the encode kernels, and
+    gives a second bitstream of the geometry its own pixels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from webp_tpu_torch.lossy import decode as dec
@@ -480,20 +495,127 @@ def test_device_decode_on_the_card_equals_host_decoder(name):
     cuda.reset_launches()
     planes = dd.decode_vp8_yuv_device(bs)
     rgb = dd.decode_vp8_rgb_device(bs)
-    assert not any(cuda.LAUNCHES.values())
+    assert dict(cuda.LAUNCHES) == dict(
+        {k: 0 for k in cuda.LAUNCHES}, decode_wavefront=2), cuda.LAUNCHES
     for got, want in zip(planes, dec.decode_vp8_yuv(bs)):
         assert np.array_equal(got, want)
     assert np.array_equal(rgb, dec.decode_vp8_rgba(bs)[..., :3])
-    fn = dd._fn(dd._parse_inputs(bs), True)
-    fn.graph = False
-    try:
-        assert np.array_equal(dd.decode_vp8_rgb_device(bs), rgb)
-    finally:
-        fn.graph = True
-    # The cached graph replays from step 0 on a second bitstream.
+    assert np.array_equal(rgb, dd.decode_vp8_rgb_device(bs, device="cpu"))
+    for got, want in zip(planes, dd.decode_vp8_yuv_device(bs, device="cpu")):
+        assert np.array_equal(got, want)
     bs2 = _vp8(_images(1, h, w, seed=w * h + 1)[0], **opts)
     assert np.array_equal(dd.decode_vp8_rgb_device(bs2),
                           dec.decode_vp8_rgba(bs2)[..., :3])
+
+
+# The decode kernel's geometries: the benchmark's, ragged, one MB, one MB
+# row; its filter types: (encode options, vp8_parse's filter type).
+KERNEL_GEOMS = [(1536, 1024), (33, 17), (16, 16), (200, 16)]
+FILTERS = {"none": (dict(filter_strength=0), 0),
+           "simple": (dict(filter_type=0), 1),
+           "normal": ({}, 2)}
+
+
+def _decode_inputs(bss, dev):
+    """DecodeFn and its inputs (on dev, the bitstreams stacked on the batch
+    axis) for bitstreams of one geometry and filter type."""
+    from webp_tpu_torch.lossy import device_decode as dd
+
+    parsed = [dd._parse_inputs(b) for b in bss]
+    ins = [torch.cat(ts).to(dev) for ts in zip(
+        *[dd._host_inputs(p) for p in parsed])]
+    return dd._fn(parsed[0], False), ins, parsed[0][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ftype", list(FILTERS))
+@pytest.mark.parametrize("geom", KERNEL_GEOMS, ids=str)
+def test_decode_kernel_equals_plain_version_and_host_decoder(geom, ftype):
+    """On every filter type and geometry, the kernel's MB-padded planes
+    equal the plain version's (the step loop on the CPU), and the planes
+    and RGB of the device decode equal the native decoder's, byte for
+    byte; one launch a decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.lossy import decode as dec
+    from webp_tpu_torch.lossy import device_decode as dd
+    from webp_tpu_torch.ops import cuda
+
+    (w, h), (opts, want_ft) = geom, FILTERS[ftype]
+    img = _images(1, h, w, seed=w + h)[0]
+    # The full-size file from the card's encoder, the small ones I4-rich
+    # from the host's at method 6.
+    bs = _vp8(img, method=6, quality=40, **opts) if w * h < 65536 else \
+        _bitstream(webp_tpu_torch.encode(img, quality=40, **opts))
+    fn, ins, P = _decode_inputs([bs], "cuda")
+    assert int(P["finfo"][0]) == want_ft, "premise: the filter type"
+    cuda.reset_launches()
+    got = fn(*ins)
+    assert cuda.LAUNCHES["decode_wavefront"] == 1
+    want = fn.plain(*[t.cpu() for t in ins])
+    for g, r in zip(got, want):
+        assert torch.equal(g.cpu(), r)
+    cw, ch = (w + 1) >> 1, (h + 1) >> 1
+    host = dec.decode_vp8_yuv(bs)
+    for g, r, (pw, ph) in zip(got, host, ((w, h), (cw, ch), (cw, ch))):
+        assert np.array_equal(g[0, :ph, :pw].cpu().numpy(), r)
+    assert np.array_equal(dd.decode_vp8_rgb_device(bs),
+                          dec.decode_vp8_rgba(bs)[..., :3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ftype", list(FILTERS))
+def test_decode_kernel_batch_equals_its_single_images(ftype):
+    """A batch of three bitstreams of one geometry in one launch equals
+    each decoded alone (B = 1) and the native decoder."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.lossy import decode as dec
+    from webp_tpu_torch.ops import cuda
+
+    opts, _ = FILTERS[ftype]
+    bss = [_vp8(im, method=6, quality=q, **opts) for im, q in zip(
+        _images(3, 40, 72, seed=5), (30, 60, 90))]
+    fn, ins, _ = _decode_inputs(bss, "cuda")
+    cuda.reset_launches()
+    both = fn(*ins)
+    assert cuda.LAUNCHES["decode_wavefront"] == 1
+    for i, bs in enumerate(bss):
+        one = fn(*_decode_inputs([bs], "cuda")[1])
+        for g, r in zip(both, one):
+            assert torch.equal(g[i], r[0])
+        assert np.array_equal(both[0][i, :40, :72].cpu().numpy(),
+                              dec.decode_vp8_yuv(bs)[0])
+
+
+@pytest.mark.cuda
+def test_decode_launches_the_kernel_once_and_never_the_plain_version(
+        monkeypatch):
+    """decode() on the card launches the decode kernel exactly once a call
+    and no encode kernel; the plain version (the step loop) is never
+    reached by card tensors, and a wrong input dtype raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from webp_tpu_torch.ops import cuda
+    from webp_tpu_torch.ops import decode as od
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran for card tensors")
+
+    monkeypatch.setattr(od.DecodeFn, "plain", plain)
+    monkeypatch.setattr(od._StepLoop, "run", plain)
+    data = webp_tpu_torch.encode(_images(1, 48, 64, seed=8)[0],
+                                 backend="host")
+    host = webp_tpu_torch.decode(data, backend="host")
+    cuda.reset_launches()
+    for n in (1, 2, 3):
+        assert np.array_equal(webp_tpu_torch.decode(data), host)
+        assert dict(cuda.LAUNCHES) == dict(
+            {k: 0 for k in cuda.LAUNCHES}, decode_wavefront=n)
+    fn, ins, _ = _decode_inputs([_bitstream(data)], "cuda")
+    with pytest.raises(TypeError):
+        fn(ins[0].to(torch.int32), *ins[1:])
+    assert cuda.LAUNCHES["decode_wavefront"] == 3
 
 
 @pytest.mark.cuda
@@ -550,6 +672,7 @@ def test_launch_signatures_match_the_cuda_sources():
 
     assert set(cuda.SIGNATURES) == set(_build.KERNEL_LIBS) == set(
         cuda.LAUNCHES)
+    assert "decode_wavefront" in _build.KERNEL_LIBS
     for name in _build.KERNEL_LIBS:
         (src,) = _build.LIBS[name][1]
         with open(os.path.join(_build.HERE, src)) as f:
@@ -675,7 +798,8 @@ def test_animation_on_the_card_equals_the_cpu(geom):
     cuda.reset_launches()
     dev = A.encode_animation_device(frames, 40, batch=2)
     # 5 unique frames of 6 in batches of 2.
-    assert set(cuda.LAUNCHES.values()) == {3}, cuda.LAUNCHES
+    assert set(encode_launches().values()) == {3}, cuda.LAUNCHES
+    assert cuda.LAUNCHES["decode_wavefront"] == 0
     assert dev == A.encode_animation_device(frames, 40, batch=2,
                                             device="cpu")
     files = [dev]
@@ -800,9 +924,9 @@ def test_kernel4_on_the_oracles_modes_equals_the_oracle():
 @pytest.mark.parametrize("geom", [(64, 48), (72, 40)])
 def test_cli_on_the_card_equals_encode_and_the_cpu(geom, tmp_path):
     """The CLI's defaults run on the card: `enc in.png out.webp` launches
-    each kernel once and writes encode(img)'s bytes, which `enc -device
-    cpu` also writes; `dec` launches none and gives the host decoder's
-    pixels, as `dec -device cpu` does."""
+    each encode kernel once and writes encode(img)'s bytes, which `enc
+    -device cpu` also writes; `dec` launches the decode kernel once and
+    gives the host decoder's pixels, as `dec -device cpu` does."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from webp_tpu_torch.cli import main
@@ -816,14 +940,16 @@ def test_cli_on_the_card_equals_encode_and_the_cpu(geom, tmp_path):
         f.write(write_png(img))
     cuda.reset_launches()
     assert main(["enc", src, out]) == 0
-    assert set(cuda.LAUNCHES.values()) == {1}, cuda.LAUNCHES
+    assert set(encode_launches().values()) == {1}, cuda.LAUNCHES
+    assert cuda.LAUNCHES["decode_wavefront"] == 0
     data = open(out, "rb").read()
     assert data == webp_tpu_torch.encode(img)
     assert main(["enc", "-device", "cpu", src, out + ".cpu"]) == 0
     assert open(out + ".cpu", "rb").read() == data
     cuda.reset_launches()
     assert main(["dec", out, str(tmp_path / "back.png")]) == 0
-    assert not any(cuda.LAUNCHES.values()), cuda.LAUNCHES
+    assert dict(cuda.LAUNCHES) == dict(
+        {k: 0 for k in cuda.LAUNCHES}, decode_wavefront=1), cuda.LAUNCHES
     back = read_png(open(tmp_path / "back.png", "rb").read())
     assert np.array_equal(back, webp_tpu_torch.decode(data, backend="host"))
     assert main(["dec", "-device", "cpu", out, str(tmp_path / "c.png")]) == 0

@@ -1,5 +1,6 @@
 """The device decode on the CPU (ops/decode.py, lossy/device_decode.py;
-device="cpu", the plain versions of the card's step loop): its planes
+device="cpu", the step loop that is the plain version of the card's
+decode kernel, csrc/decode_wavefront.cu): its planes
 and RGB against the reference's jitted decode_fn at two shapes (each
 reference compile costs ~12 s, so the cases share them through a module
 fixture), and against the host decoder on all three filter branches
@@ -7,6 +8,9 @@ fixture), and against the host decoder on all three filter branches
 the pipelined stream. The lanes-first helpers (_preds4, _unblock,
 pred4_all), the skew and the device upsample are held against the
 reference's jnp versions on random inputs. Every comparison is exact.
+The wrapper's dispatch is checked too: CPU tensors take the plain
+version and launch nothing, card tensors reach the kernel's launch (a
+stand-in here) and never the step loop.
 
 The reference's own device decode is wrong on simple-filtered bitstreams
 (its simple filter reads the left neighbour's columns 14 and 15 out of
@@ -28,6 +32,7 @@ from webp_tpu.ops import yuv as yuv_ref
 from webp_tpu_torch.container.parser import Parser
 from webp_tpu_torch.lossy import decode as dec
 from webp_tpu_torch.lossy import device_decode as dd
+from webp_tpu_torch.ops import cuda
 from webp_tpu_torch.ops import decode as od
 from webp_tpu_torch.ops import fastpath as fp
 from webp_tpu_torch.ops import i4 as i4p
@@ -143,6 +148,86 @@ def test_batched_decode_fn_equals_single_images():
     for i, bs in enumerate(bss):
         assert np.array_equal(both[i].numpy(),
                               dec.decode_vp8_rgba(bs)[..., :3])
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing(monkeypatch):
+    """On CPU tensors DecodeFn runs its plain version (the step loop) once
+    a call and counts no kernel launch."""
+    ran = []
+    plain = od.DecodeFn.plain
+
+    def counted(self, *a):
+        ran.append(self.filter_type)
+        return plain(self, *a)
+
+    monkeypatch.setattr(od.DecodeFn, "plain", counted)
+    cuda.reset_launches()
+    for name in ("normal_64x48", "simple_33x17", "nofilter_33x17"):
+        bs, ftype = STREAMS[name]
+        assert np.array_equal(dd.decode_vp8_rgb_device(bs, device="cpu"),
+                              dec.decode_vp8_rgba(bs)[..., :3])
+        assert ran[-1] == ftype
+    assert len(ran) == 3
+    assert not any(cuda.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", ["normal_m6_120x90", "simple_33x17",
+                                  "nofilter_72x40"])
+def test_card_tensors_reach_the_kernel_never_the_step_loop(monkeypatch, name):
+    """For tensors on a card DecodeFn launches the decode kernel once (here
+    a stand-in that records its arguments) with the geometry, the filter
+    type and cluster_size's blocks per image, and never runs the step
+    loop; the launch is counted."""
+    calls = []
+
+    def loop(*a, **k):
+        raise AssertionError("the step loop ran for card tensors")
+
+    def launch(name, *a):
+        calls.append((name, a[8:13], tuple(a[13].shape), tuple(a[14].shape)))
+        cuda.LAUNCHES[name] += 1
+
+    monkeypatch.setattr(od.DecodeFn, "plain", loop)
+    monkeypatch.setattr(od._StepLoop, "run", loop)
+    monkeypatch.setattr(od, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(cuda, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(cuda, "launch", launch)
+    bs, ftype = STREAMS[name]
+    parsed = dd._parse_inputs(bs)
+    mbw, mbh = (int(v) for v in parsed[0]["dims"][:2])
+    ins = [torch.cat([t, t]) for t in dd._host_inputs(parsed)]
+    cuda.reset_launches()
+    Y, U, V = dd._fn(parsed, False)(*ins)
+    C = od.cluster_size(2, mbh, 132)
+    assert calls == [("decode_wavefront", (2, mbw, mbh, C, ftype),
+                      (2, mbh * 16, mbw * 16), (2, mbh * 8, mbw * 8))]
+    assert cuda.LAUNCHES["decode_wavefront"] == 1
+    assert tuple(V.shape) == tuple(U.shape) == (2, mbh * 8, mbw * 8)
+
+
+def test_decode_fn_refuses_inputs_the_kernel_does_not_take():
+    """DecodeFn checks each input's dtype, shape and layout before either
+    version runs."""
+    bs = STREAMS["normal_64x48"][0]
+    parsed = dd._parse_inputs(bs)
+    ins = dd._host_inputs(parsed)
+    fn = dd._fn(parsed, False)
+    bad = list(ins)
+    bad[0] = ins[0].to(torch.int32)                  # coeffs are int16
+    with pytest.raises(TypeError):
+        fn(*bad)
+    bad = list(ins)
+    bad[4] = ins[4][:, :-1]                          # one MB short
+    with pytest.raises(ValueError):
+        fn(*bad)
+    bad = list(ins)
+    bad[2] = ins[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        fn(*bad)
+    bad = list(ins)
+    bad[1] = ins[1].to(torch.uint8)                  # is_i4 is bool
+    with pytest.raises(TypeError):
+        fn(*bad)
 
 
 def _rand(rng, shape, lo=0, hi=256):

@@ -10,7 +10,8 @@ Two kinds of library, both with a plain C interface loaded by ctypes:
     used on every lossless encode and ALPH plane; and the PNG reader's
     row unfilter (native/src, g++), used by the command line tool;
   * the Hopper kernels (csrc/*.cu, nvcc for sm_90a), used when a kernel
-    wrapper receives CUDA tensors.
+    wrapper receives CUDA tensors: four on the lossy encode, one on the
+    lossy decode.
 
 Each library is named by a hash of its sources and flags and lands in
 `_build/` beside this file (listed in .gitignore). Builds are safe under
@@ -63,8 +64,11 @@ LIBS = {
     "p1_mode": ("nvcc", ["csrc/p1_mode.cu"], ["csrc/common.cuh"]),
     "i4_search": ("nvcc", ["csrc/i4_search.cu"], ["csrc/common.cuh"]),
     "p2_wavefront": ("nvcc", ["csrc/p2_wavefront.cu"], ["csrc/common.cuh"]),
+    "decode_wavefront": ("nvcc", ["csrc/decode_wavefront.cu"],
+                         ["csrc/common.cuh"]),
 }
-KERNEL_LIBS = ("p1_alpha", "p1_mode", "i4_search", "p2_wavefront")
+KERNEL_LIBS = ("p1_alpha", "p1_mode", "i4_search", "p2_wavefront",
+               "decode_wavefront")
 
 _loaded: dict = {}
 _mutex = threading.Lock()

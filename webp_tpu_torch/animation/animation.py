@@ -130,11 +130,9 @@ def decode_animation(data: bytes, backend: str = "device",
     which has no backend argument). Both give the reference's pixels.
     Composition happens later, in AnimDecoder.
 
-    backend="host" is the fast path: the device decode is a PyTorch step
-    loop per frame, about 100-300x slower than the native decoder on an
-    H100 (PERF.md). The device default stands until the decode wavefront
-    kernel (ROADMAP.md queue 2) lands; that kernel is the condition for
-    keeping this fork.
+    On the card each lossy frame is one launch of the decode kernel
+    (csrc/decode_wavefront.cu) between its host token parse and the
+    upsampling.
     """
     check_backend(backend, "decode_animation", BACKENDS)
     p = Parser(data)

@@ -4,7 +4,7 @@ Each kernel lives in csrc/<name>.cu behind a plain C function
 `<name>_launch(...)` that returns cudaGetLastError(); the library is built
 by nvcc at first use (_build.py) and called through ctypes on PyTorch's
 current stream. A kernel wrapper (ops/p1_kernels.py, ops/i4_kernel.py,
-ops/p2_kernel.py) checks its tensors with `check`, takes its plain
+ops/p2_kernel.py, ops/decode.py) checks its tensors with `check`, takes its plain
 PyTorch version only when `on_cpu` says the tensors lie on the CPU, and
 otherwise calls `launch`, which raises on a refused launch and counts it
 in LAUNCHES (the "launches" group of trace.COUNTERS).
@@ -67,6 +67,7 @@ SIGNATURES = {
     "p1_mode": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "i4_search": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "p2_wavefront": (_P,) * 10 + (_I,) * 5 + (_F,) * 2 + (_P,) * 8,
+    "decode_wavefront": (_P,) * 8 + (_I,) * 5 + (_P,) * 3,
 }
 _fns: dict = {}
 

@@ -1,10 +1,13 @@
-"""Device VP8 decode (PyTorch): batched IDCT, a skew-2 wavefront that
-reconstructs and loop-filters the macroblocks, and fancy upsampling.
-Counterpart of webp_tpu/ops/decode.py.
+"""Device VP8 decode (PyTorch): reconstruction and loop filter of the
+macroblocks on a skew-2 wavefront, then fancy upsampling. Counterpart of
+webp_tpu/ops/decode.py.
 
 The host (the native vp8_parse, native/src/vp8_dec.cc) stops after the
 token pass and hands over dequantized coefficients and per-MB info;
-every pixel-shaped stage runs here:
+every pixel-shaped stage runs here. On the card one launch of the
+hand-written kernel csrc/decode_wavefront.cu (`wavefront`) reconstructs
+and filters the whole batch. Its plain version, for CPU tensors, is the
+step loop below (DecodeFn.plain):
 
   * the residual IDCT, one batched tensor operation over every 4x4 block
     (ops/dct.py's integer transform);
@@ -17,22 +20,20 @@ every pixel-shaped stage runs here:
     raster order: each step filters its MB's edges and emits writeback
     patches for the right columns of its left neighbour and the bottom
     rows of the MB above, which the assembly overlays afterwards;
-  * fancy upsampling and YUV -> RGB (ops/yuv.py).
+  * fancy upsampling and YUV -> RGB (ops/yuv.py), on every device.
 
 The step loop reads its inputs and writes its outputs and carry through
-fixed buffers indexed by a step counter on the device. On the card the
-first call runs one step, captures the next in a torch.cuda.CUDAGraph and
-replays it for every further step; later calls of the same geometry,
-filter type and batch replay the cached graph from step 0. graph=False
-runs every step eagerly (the same operations). On the CPU the loop always
-runs eagerly: the plain versions.
+fixed buffers indexed by a step counter on the device, and runs its
+steps eagerly on whatever device its inputs lie on (chip_smoke.py times
+it on the card).
 
 Exact against the host decoder on all three filter branches (none,
-simple, normal). The reference's simple filter reads the left
-neighbour's columns 14 and 15 out of its 4-column patch (JAX clamps the
-gather to column 3 and drops the write-back), so on simple-filtered
-bitstreams the reference's device decode differs from its own host
-decoder; this port follows the host decoder there.
+simple, normal), the kernel and the plain version alike. The reference's
+simple filter reads the left neighbour's columns 14 and 15 out of its
+4-column patch (JAX clamps the gather to column 3 and drops the
+write-back), so on simple-filtered bitstreams the reference's device
+decode differs from its own host decoder; this port follows the host
+decoder there.
 """
 
 from __future__ import annotations
@@ -42,9 +43,10 @@ import functools
 import torch
 
 from .. import trace
-from . import dct
+from . import cuda, dct
 from .fastpath import _preds4, _unblock
 from .i4 import pred4_all
+from .p2_kernel import cluster_size, sm_count
 
 SK = 2  # the decode's skew: the I4 walk needs the true above-right MB
 
@@ -464,7 +466,7 @@ def _filter_assemble(outs, B, mb_w, mb_h):
 class _StepLoop:
     """The fused decode's step loop for one geometry, filter type, batch
     and device: static step inputs, carry, outputs and a step counter on
-    the device, and on the card the captured step (a CUDA graph)."""
+    the device."""
 
     def __init__(self, mb_w, mb_h, filter_type, B, device):
         self.mb_w, self.mb_h, self.B = mb_w, mb_h, B
@@ -482,7 +484,6 @@ class _StepLoop:
         self.t = torch.zeros((1,), dtype=torch.long, device=device)
         self.xs = None
         self.outs = []
-        self.graph = None
 
     def _body(self):
         t = self.t
@@ -516,7 +517,7 @@ class _StepLoop:
             o.index_copy_(0, t, y[None])
         t.add_(1)
 
-    def run(self, xs: dict, graph: bool) -> list:
+    def run(self, xs: dict) -> list:
         """Runs every step on the sheared inputs xs ({name: [n_steps, N,
         ...]}); returns the step outputs [n_steps, N, ...] (the loop's own
         buffers, overwritten by the next run)."""
@@ -528,26 +529,26 @@ class _StepLoop:
             for c in self.carry:
                 c.zero_()
             self.t.zero_()
-        graph = graph and self.dev.type == "cuda"
-        if graph and self.graph is not None:
-            for _ in range(self.n_steps):
-                self.graph.replay()
-            return self.outs
-        self._body()
-        if graph and self.n_steps > 1:
-            g = torch.cuda.CUDAGraph()
-            # A capture stream of this card (torch.cuda.graph's default is
-            # one stream, made on whichever card was current at first use).
-            with torch.cuda.graph(g, stream=torch.cuda.Stream(self.dev)):
-                self._body()
-            trace.count(trace.PROGRAMS, "built")
-            self.graph = g
-            for _ in range(self.n_steps - 1):
-                g.replay()
-        else:
-            for _ in range(self.n_steps - 1):
-                self._body()
+        for _ in range(self.n_steps):
+            self._body()
         return self.outs
+
+
+def wavefront(coeffs, is_i4, imodes, uvmode, limit, ilevel, hevt, inner,
+              mb_w: int, mb_h: int, filter_type: int):
+    """The kernel's launch alone, on card tensors that DecodeFn has
+    checked: one launch of csrc/decode_wavefront.cu with
+    cluster_size(B, mb_h, SMs) blocks per image. Returns the filtered
+    MB-padded planes (Y [B, 16 mb_h, 16 mb_w], U, V [B, 8 mb_h, 8 mb_w])
+    u8."""
+    B, dev = coeffs.shape[0], coeffs.device
+    C = cluster_size(B, mb_h, sm_count(dev))
+    Y = torch.empty((B, mb_h * 16, mb_w * 16), dtype=torch.uint8, device=dev)
+    U = torch.empty((B, mb_h * 8, mb_w * 8), dtype=torch.uint8, device=dev)
+    V = torch.empty_like(U)
+    cuda.launch("decode_wavefront", coeffs, is_i4, imodes, uvmode, limit,
+                ilevel, hevt, inner, B, mb_w, mb_h, C, filter_type, Y, U, V)
+    return Y, U, V
 
 
 def _mb_to_plane(b, mb_w, mb_h, s):
@@ -566,11 +567,9 @@ class DecodeFn:
       -> (Y [B, H, W] u8, U, V) MB-padded planes, or with upsample RGB
       [B, h, w, 3] cropped to width x height.
 
-    All inputs on one device (the card, or the CPU for the plain
-    versions). fn.graph = False runs the card's step loop without its
-    CUDA graph; fn.steps is the number of steps."""
-
-    graph = True
+    All inputs on one device: on the card the kernel runs (`wavefront`),
+    on the CPU the plain version (`plain`); no other path. fn.steps is
+    the number of wavefront steps."""
 
     def __init__(self, mb_w, mb_h, filter_type, upsample, width, height):
         self.mb_w, self.mb_h = mb_w, mb_h
@@ -591,8 +590,10 @@ class DecodeFn:
                                          self.filter_type, B, device)
         return self._loops[key]
 
-    def __call__(self, coeffs, is_i4, imodes, uvmode, limit, ilevel, hevt,
-                 inner):
+    def plain(self, coeffs, is_i4, imodes, uvmode, limit, ilevel, hevt,
+              inner):
+        """The plain version of the kernel: the step loop, on the inputs'
+        device, -> the MB-padded planes (Y, U, V)."""
         mb_w, mb_h = self.mb_w, self.mb_h
         B, n_mb = coeffs.shape[0], mb_w * mb_h
         res = dct.idct4x4(coeffs.to(torch.int32).reshape(B, n_mb, 24, 4, 4))
@@ -608,14 +609,33 @@ class DecodeFn:
                       il=sh(ilevel.to(torch.int32)),
                       hev=sh(hevt.to(torch.int32)),
                       inner=sh(inner.to(torch.bool)))
-        outs = self.loop(B, coeffs.device).run(xs, self.graph)
+        outs = self.loop(B, coeffs.device).run(xs)
         if self.filter_type > 0:
             Yb, Ub, Vb = _filter_assemble(outs, B, mb_w, mb_h)
         else:
             Yb, Ub, Vb = (_unshear(o, B, mb_w, mb_h) for o in outs)
-        Y = _mb_to_plane(Yb, mb_w, mb_h, 16)
-        U = _mb_to_plane(Ub, mb_w, mb_h, 8)
-        V = _mb_to_plane(Vb, mb_w, mb_h, 8)
+        return (_mb_to_plane(Yb, mb_w, mb_h, 16),
+                _mb_to_plane(Ub, mb_w, mb_h, 8),
+                _mb_to_plane(Vb, mb_w, mb_h, 8))
+
+    def __call__(self, coeffs, is_i4, imodes, uvmode, limit, ilevel, hevt,
+                 inner):
+        mb_w, mb_h = self.mb_w, self.mb_h
+        B, n_mb = coeffs.shape[0], mb_w * mb_h
+        if B == 0:
+            raise ValueError("decode: an empty batch")
+        cuda.check("coeffs", coeffs, torch.int16, (B, n_mb, 24, 16))
+        for name, t in (("is_i4", is_i4), ("inner", inner)):
+            cuda.check(name, t, torch.bool, (B, n_mb))
+        cuda.check("imodes", imodes, torch.uint8, (B, n_mb, 16))
+        cuda.check("uvmode", uvmode, torch.uint8, (B, n_mb))
+        for name, t in (("limit", limit), ("ilevel", ilevel), ("hevt", hevt)):
+            cuda.check(name, t, torch.int32, (B, n_mb))
+        args = (coeffs, is_i4, imodes, uvmode, limit, ilevel, hevt, inner)
+        if cuda.on_cpu(*args):
+            Y, U, V = self.plain(*args)
+        else:
+            Y, U, V = wavefront(*args, mb_w, mb_h, self.filter_type)
         if not self.upsample:
             return Y, U, V
         from . import yuv as devyuv
@@ -630,7 +650,6 @@ class DecodeFn:
 def decode_fn(mb_w: int, mb_h: int, filter_type: int, upsample: bool = True,
               width: int = 0, height: int = 0) -> DecodeFn:
     """The cached DecodeFn of a geometry, filter type (vp8_parse's
-    finfo[0]: 0 none, 1 simple, 2 normal) and output form; it keeps one
-    step loop (and on the card one CUDA graph) per batch size and
-    device."""
+    finfo[0]: 0 none, 1 simple, 2 normal) and output form; its plain
+    version keeps one step loop per batch size and device."""
     return DecodeFn(mb_w, mb_h, filter_type, upsample, width, height)
