@@ -33,15 +33,14 @@ def control_numbers(cell, seed: int, n_items: int, device=None) -> dict:
     for k in range(0, len(items), per):
         chunk = items[k:k + per]
         program.append(Request(chunk, 0.0, outputs=call(chunk)))
-    ref = check.reference(cell.mix, cell.options, imgs, inputs, items,
-                          program)
-    ctl = check.reference(cell.mix, cell.options, imgs, inputs, items,
-                          program, control=cell.control)
+    ref = check.reference(cell, imgs, inputs, items, program)
+    ctl = check.reference(cell, imgs, inputs, items, program,
+                          control=cell.control)
     as_program = [Request([i], 0.0, outputs=[ctl["ref"][i]]) for i in items]
     # An encode control's files are read back against the reference's
     # reconstruction, as the program's are.
     ref_ctl = ref if cell.mix["entry"] == "decode" else check.reference(
-        cell.mix, cell.options, imgs, inputs, items, as_program)
+        cell, imgs, inputs, items, as_program)
     return {"seed": seed, "items": items,
             "breaks": cell.control.get("breaks", ""),
             "program": check.numbers(cell.mix, program, ref),

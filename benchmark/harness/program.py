@@ -4,13 +4,14 @@ per-layer readers compute from them.
 start() turns the package's tracer on and stop() turns it off and takes
 its records, as Spans on the host clock (time.perf_counter's seconds, the
 clock of the run's request times). A run calls them around its window,
-and only with --trace 1; a package without the tracer gives nothing
-(start() returns False), and every reader then returns None.
+and only with --trace 1; an untraced run has no spans, and every span
+reader then returns None. The package's counters are always on: a run
+resets them after its warm-up and reads them after its window.
 
 Readings carry the spans as `r.program` (a list of Span, None where the
-run took none). A span's self time is its wall time less the part of it
-that its children cover; a child may run on another thread (the
-stream's tails under their batch's drain).
+run took none) and the counters as `r.counters`. A span's self time is
+its wall time less the part of it that its children cover; a child may
+run on another thread (the stream's tails under their batch's drain).
 """
 
 from __future__ import annotations
@@ -36,15 +37,12 @@ class Span(NamedTuple):
         return self.end - self.start
 
 
-def start() -> bool:
-    """Turns the package's tracer on; False where the package has none."""
-    try:
-        from webp_tpu_torch import trace
-    except ImportError:
-        return False
+def start() -> None:
+    """Turns the package's tracer on, its earlier records dropped."""
+    from webp_tpu_torch import trace
+
     trace.take()
     trace.enable()
-    return True
 
 
 def stop() -> list:
@@ -57,16 +55,21 @@ def stop() -> list:
 
 
 def counters() -> dict:
-    """The package's counters (trace.COUNTERS), {} without the tracer."""
-    try:
-        from webp_tpu_torch import trace
-    except ImportError:
-        return {}
+    """The package's counters (trace.COUNTERS)."""
+    from webp_tpu_torch import trace
+
     return trace.counters()
 
 
+def reset_counters() -> None:
+    """Sets every count of the package's counters to 0."""
+    from webp_tpu_torch import trace
+
+    trace.reset_counters()
+
+
 def spans_of(r) -> list:
-    return getattr(r, "program", None) or []
+    return r.program or []
 
 
 def named(spans, name: str) -> list:
@@ -200,11 +203,10 @@ def idle_gaps(t, spans, host_spans: dict) -> list:
     """[[label, seconds]] of every stretch of the traced window in which
     the device ran nothing, longest first. Each is labelled by the
     deepest program span, on any thread, that covers its middle (the
-    latest started among equals); a gap no program span covers keeps the
-    label trace.idle_gaps gives it (the first of host_spans, name ->
-    host-clock intervals, that covers it, else "between requests"). Span
-    times move to the trace's clock by the offset the request ranges
-    give (t.offset)."""
+    latest started among equals); a gap no program span covers takes the
+    name of the first of host_spans (name -> host-clock intervals) that
+    covers its middle, else "between requests". Host times move to the
+    trace's clock by the offset the request ranges give (t.offset)."""
     d = depths(spans)
     live = sorted(((s.start + t.offset, s.end + t.offset, k, s.name)
                    for s, k in zip(spans, d)

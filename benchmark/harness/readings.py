@@ -22,6 +22,8 @@ class Readings:
     host_tail: list = None      # host-clock intervals of the host tail
     trace: object = None        # trace.TraceData of the traced requests
     traced: list = field(default_factory=list)
+    program: list = None        # program.Span of a traced window
+    counters: dict = field(default_factory=dict)  # the package's, window
 
     def served(self, reqs=None) -> list:
         return [r for r in (self.requests if reqs is None else reqs)

@@ -2,8 +2,13 @@
 comparison, and the result. Everything a cell needs is found by name:
 the cell in BENCHMARK.json's workloads, its configuration in the file
 the configuration's entry names, its traffic mix in
-benchmark/traffic/<traffic>.json and each metric's reader in
-benchmark/metrics/<metric>.py."""
+benchmark/traffic/<traffic>.json, its reference in the modules
+benchmark/reference/<name>.py the configuration names (check.py) and
+each metric's reader in benchmark/metrics/<metric>.py.
+
+A traced run (--trace 1) turns the measured package's tracer on for the
+window; an untraced one leaves it off. Both read the package's counters
+over the window."""
 
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ import os
 import sys
 import time
 
-from . import check, entries, host, traffic
+from . import check, entries, host, program, traffic
 from . import window as W
 from .readings import Readings
 
@@ -54,6 +59,7 @@ class Cell:
         traffic.check_mix(self.mix)
         self.options = dict(self.config["options"])
         self.control = self.config.get("control", {})
+        self.reference = check.reference_modules(self.config)
 
     def metrics(self, trace: bool) -> list:
         """The metric entries this cell reports: its end-to-end metrics,
@@ -117,21 +123,6 @@ def prepare(cell: Cell, seed: int, device):
     return imgs, inputs
 
 
-def counters() -> dict:
-    from webp_tpu_torch.lossy.device_encode import FALLBACKS
-    from webp_tpu_torch.ops.cuda import LAUNCHES
-
-    return {"launches": dict(LAUNCHES), "fallbacks": dict(FALLBACKS)}
-
-
-def reset_counters() -> None:
-    from webp_tpu_torch.lossy.device_encode import FALLBACKS
-    from webp_tpu_torch.ops.cuda import reset_launches
-
-    reset_launches()
-    FALLBACKS["images"] = 0
-
-
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device=None,
         age0: float = None, t_start: float = None, workers: int = None):
     """One run. device None: the card (the measured path); "cpu" runs the
@@ -167,9 +158,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device=None,
     n_warm = entries.warm(call, cell.mix)
     entries.synchronize(device)
     say(f"warm-up: {n_warm} requests, {time.perf_counter() - t:.3f} s; "
-        f"counters {counters()}")
+        f"counters {program.counters()}")
     stage("warmed up")
-    reset_counters()
+    program.reset_counters()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
 
@@ -194,35 +185,43 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device=None,
             entries.synchronize(device)
         return out
 
+    keep = check.Keeper(cell.mix, seed)
+
     def after(req):
         if served[0] == traced_n and dtrace is not None and dtrace.on:
             dtrace.stop()
+        keep(req)
 
     from .spans import host_tail
 
     span = host_tail() if trace else None
     reqs = traffic.request_items(cell.mix, seed)
-    if span is not None:
+    prog = None                 # the package's spans of a traced window
+    if trace:
         span.__enter__()
+        program.start()
     try:
         t0, requests = W.run_closed(timed, reqs, seconds, after)
         entries.synchronize(device)
     finally:
-        if span is not None:
+        if trace:
+            prog = program.stop()
             span.__exit__(None, None, None)
         if dtrace is not None and dtrace.on:
             dtrace.stop()
     t_end = time.perf_counter()
     setup_s = age0 + (t0 - t_start)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
-    cnt = counters()
+    cnt = program.counters()
     say(f"window: {len(requests)} requests in {t_end - t0:.3f} s "
         f"(set-up {setup_s:.3f} s); counters {cnt}")
 
     r = Readings(cell.spec, cell.mix, cell.options, traffic.pool_sizes(
         cell.mix), t0, requests, setup_s,
         host_tail=span.intervals if span is not None else None,
-        traced=requests[:traced_n])
+        traced=requests[:traced_n], program=prog, counters=cnt)
+    for line in program.summary_lines(prog, r.items()):
+        say(line)
     device_info = {"platform": "gpu" if on_card else "cpu",
                    "kind": torch.cuda.get_device_name(0) if on_card
                    else "cpu", "count": chips if on_card else 0,
@@ -235,15 +234,19 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device=None,
         r.trace = dtrace.read(host_starts)
         tr = r.trace
         say(f"trace: {len(tr.device)} device activities, "
-            f"{len(tr.kernels)} kernels, {len(tr.markers)} request ranges")
+            f"{len(tr.kernels)} kernels, {len(tr.markers)} request ranges; "
+            f"clock offset (profiler minus host clock) {tr.offset} s")
         device_info["busy_s"] = tr.busy_s()
         device_info["window_s"] = tr.window_s
         req_spans = [(q.start, q.end) for q in r.traced]
-        result["breakdown"] = {
-            "device_ops": TR.device_ops(tr),
-            "idle_gaps": TR.idle_gaps(tr, {
-                "host tail": span.intervals,
-                f"{cell.mix['entry']} outside the host tail": req_spans})}
+        gaps = program.idle_gaps(tr, prog, {
+            "host tail": span.intervals,
+            f"{cell.mix['entry']} outside the host tail": req_spans})
+        say(f"idle gaps: {len(gaps)}, {sum(g for _, g in gaps)} s; "
+            f"labelled by program spans "
+            f"{program.labelled_share(gaps, prog)}")
+        result["breakdown"] = {"device_ops": TR.device_ops(tr),
+                               "idle_gaps": gaps[:10]}
     for m in cell.metrics(trace):
         v = load_reader(m["name"])(r)
         if v is not None:
@@ -255,10 +258,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device=None,
     # The comparison, outside the window and after the peak was read.
     items = check.sample(cell.mix, seed, requests)
     t = time.perf_counter()
-    res = check.reference(cell.mix, cell.options, imgs, inputs, items,
-                          requests, workers=workers)
+    res = check.reference(cell, imgs, inputs, items, requests,
+                          workers=workers)
     nums = check.numbers(cell.mix, requests, res)
-    n_cmp = sum(1 for q in requests for i in q.items if i in res["ref"])
+    n_cmp = check.kept(requests, res["ref"])
     n_rec = sum(c for _, c in res.get("recon", {}).values())
     say(f"reference: pool items {items} in {time.perf_counter() - t:.3f} s "
         f"on the CPU; {n_cmp} outputs compared, {n_rec} read back against "

@@ -120,20 +120,3 @@ def device_ops(t: TraceData, top: int = 10) -> list:
             sums[key] = sums.get(key, 0.0) + min(e, t.hi) - max(s, t.lo)
     return [[n, v] for n, v in sorted(sums.items(), key=lambda kv: -kv[1])
             [:top]]
-
-
-def idle_gaps(t: TraceData, host_spans: dict, top: int = 10) -> list:
-    """[[label, seconds]] of the longest stretches of the traced window in
-    which the device ran nothing, each labelled by what the host was
-    doing at its middle: the first of host_spans (name -> host-clock
-    intervals) that covers it, else "between requests"."""
-    spans = {k: W.union([(s + t.offset, e + t.offset) for s, e in v])
-             for k, v in host_spans.items()}
-    out = []
-    for s, e in W.gaps([(a, b) for _, a, b in t.device], t.lo, t.hi):
-        mid = (s + e) / 2
-        label = next((k for k, v in spans.items()
-                      if any(a <= mid <= b for a, b in v)),
-                     "between requests")
-        out.append([label, e - s])
-    return sorted(out, key=lambda g: -g[1])[:top]

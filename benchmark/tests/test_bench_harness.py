@@ -8,10 +8,10 @@ import types
 
 import pytest
 
-from benchmark.harness import (check, entries, readings, roofline, runner,
-                               traffic)
+from benchmark.harness import (check, entries, program, readings, roofline,
+                               runner, traffic)
 from benchmark.harness import window as W
-from benchmark.harness.trace import TraceData, idle_gaps, short_name
+from benchmark.harness.trace import TraceData, short_name
 from benchmark.harness.window import Request
 
 ROOT = runner.ROOT
@@ -56,6 +56,36 @@ def test_configuration_files_hold_their_names_and_cuts():
 def test_an_unknown_cell_is_refused():
     with pytest.raises(KeyError):
         runner.Cell("no.such_cell")
+
+
+def test_a_configuration_without_the_key_takes_the_default_reference():
+    assert check.reference_modules({}) == {"encoder": "encode",
+                                           "decoder": "decode"}
+    assert check.reference_modules({"reference": {"decoder": "decode"}}) \
+        == check.REFERENCE
+    for name in CELLS:
+        assert runner.Cell(name).reference == check.REFERENCE
+
+
+@pytest.mark.parametrize("reference", [
+    {"encoder": "no_such_encoder"}, {"decoder": "no_such_decoder"},
+    {"decoder": "vp8ref"}, {"encoder": "../reference/encode"},
+    {"encoder": "encode.py"}, {"decoder": 7}, {"checker": "encode"},
+    {"decoder": "vp8dec"}, {"encoder": "decode"}, {"decoder": "encode"}])
+def test_an_unknown_reference_is_refused_when_the_cell_loads(monkeypatch,
+                                                             reference):
+    """A name that is no module, or a module without its role's
+    functions."""
+    load = runner.load_json
+
+    def with_key(path):
+        data = load(path)
+        return dict(data, reference=reference) if "configs" in path \
+            else data
+
+    monkeypatch.setattr(runner, "load_json", with_key)
+    with pytest.raises(ValueError, match="reference"):
+        runner.Cell(CELLS[0])
 
 
 def test_forbidden_modules_are_found_by_whole_top_level_name(monkeypatch):
@@ -112,8 +142,14 @@ def test_a_check_from_the_first_request_takes_its_first_items():
     reqs = [Request([4, 2, 5, 1], 0.0, error="E"),
             Request([5, 0, 5, 3], 0.0), Request([1, 2], 0.0)]
     assert check.sample(mix, 7, reqs) == [5, 0, 3]
-    assert check.sample(dict(MIXED, check_items=2), 7, reqs) == [
-        i for i in traffic.check_order(MIXED, 7) if i in {0, 1, 2, 3, 4, 5}][:2]
+    assert check.sample(dict(MIXED, check_items=2), 7, reqs) == \
+        traffic.check_order(MIXED, 7)[:2]
+
+
+def test_a_check_from_the_seed_leaves_out_items_not_served():
+    order = traffic.check_order(MIXED, 7)
+    reqs = [Request([order[1], order[3]], 0.0)]
+    assert check.sample(dict(MIXED, check_items=3), 7, reqs) == [order[1]]
 
 
 @pytest.mark.parametrize("mix", [
@@ -225,7 +261,7 @@ def test_idle_share_of_synthetic_kernel_intervals():
 
 def test_idle_gaps_are_labelled_by_the_host_span_over_them():
     tr = trace_of([("k", 1.0, 2.0), ("k", 8.0, 9.0)], offset=0.5)
-    gaps = idle_gaps(tr, {"host tail": [(2.5, 5.0)]})
+    gaps = program.idle_gaps(tr, [], {"host tail": [(2.5, 5.0)]})
     # Host spans shift by the offset: the tail covers 3.0-5.5 in the
     # trace's clock, the middle of the 2-8 gap.
     assert gaps[0] == ["host tail", pytest.approx(6.0)]
@@ -319,3 +355,63 @@ def test_pixel_numbers_count_samples():
                          {"ref": {0: want}, "pool": {0: 0, 1: 1, 2: 1}})
     assert nums["pixels_differing"] == [1 + 12, 0]
     assert nums["pool_files_differing"] == [2, 0]
+
+
+# -- what the window keeps for the check --------------------------------------
+
+def kept_window(mix, seed, items):
+    keep = check.Keeper(mix, seed)
+    reqs = []
+    for k, r in enumerate(items):
+        reqs.append(Request(r, 0.0, outputs=[(k, i) for i in r]))
+        keep(reqs[-1])
+    return reqs
+
+
+@pytest.mark.parametrize("seed", [3, 2 ** 31 + 17])
+def test_the_window_keeps_only_what_the_check_reads(seed):
+    mix = dict(MIXED, check_items=2, trace_requests=2)
+    gen = traffic.request_items(mix, seed)
+    items = [next(gen) for _ in range(600)]
+    reqs = kept_window(mix, seed, items)
+    assert [len(r.outputs) for r in reqs] == [1] * 600
+    assert all(r.outputs[0] == (k, r.items[0])
+               for k, r in enumerate(reqs[:2]))
+    sample = check.sample(mix, seed, reqs)
+    assert sample == traffic.check_order(mix, seed)[:2]
+    kept = [(k, r.items[0]) for k, r in enumerate(reqs[2:], 2)
+            if r.outputs[0] is not check.DROPPED]
+    assert {i for _, i in kept} == set(sample)
+    for i in sample:                 # each checked item's first output
+        first = next(k for k, r in enumerate(reqs) if r.items[0] == i)
+        assert reqs[first].outputs[0] == (first, i)
+    # One request in KEEP_EVERY, drawn from the seed, keeps its outputs
+    # of checked items; the same seed draws the same requests.
+    n_checked = sum(1 for r in reqs if r.items[0] in sample)
+    assert 0 < len(kept) < n_checked / 4
+    again = kept_window(mix, seed, items)
+    assert [r.outputs for r in again] == [r.outputs for r in reqs]
+    assert check.kept(reqs, set(sample)) == len(kept) + sum(
+        1 for r in reqs[:2] if r.items[0] in sample)
+
+
+def test_a_stream_keeps_the_first_requests_checked_slots():
+    mix = dict(MIXED, check_items=2, check_from="first_request",
+               trace_requests=0)
+    items = [[4, 2, 5], [2, 4, 1], [5, 4, 2]]
+    reqs = kept_window(mix, 1, items)
+    assert reqs[0].outputs[:2] == [(0, 4), (0, 2)]
+    assert reqs[0].outputs[2] is check.DROPPED
+    assert reqs[1].outputs[2] is check.DROPPED
+    assert check.sample(mix, 1, reqs) == [4, 2]
+
+
+def test_numbers_skip_dropped_outputs_and_count_them_as_given():
+    reqs = [Request([0, 1], 0.0, outputs=[b"a", check.DROPPED]),
+            Request([0], 0.0, outputs=[check.DROPPED])]
+    nums = check.numbers({"entry": "encode"}, reqs,
+                         {"ref": {0: b"a", 1: b"b"},
+                          "recon": {0: (0, True), 1: (0, False)}})
+    assert nums["outputs_missing"] == [0, 0]
+    assert nums["files_differing"] == [0, 0]
+    assert check.first_outputs(reqs, {0, 1}) == {0: b"a"}

@@ -3,6 +3,7 @@ reference imports nothing of the measured package: every module's
 imports, walked by AST, top-level names compared whole."""
 
 import ast
+import json
 import os
 
 import pytest
@@ -51,6 +52,20 @@ def test_reference_imports_nothing_of_the_program(path):
     assert PROGRAM not in names, f"{path} imports {PROGRAM}"
     assert "benchmark" not in names or path.endswith("__init__.py"), \
         f"{path} reaches outside the reference"
+
+
+def test_each_reference_a_configuration_names_is_walked():
+    from benchmark.harness.check import reference_modules
+
+    root = os.path.dirname(BENCH)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        configs = json.load(f)["configs"]
+    walked = set(modules())
+    for c in configs:
+        with open(os.path.join(root, c["file"])) as f:
+            names = reference_modules(json.load(f)).values()
+        for name in names:
+            assert os.path.join("reference", name + ".py") in walked
 
 
 def test_the_comparison_is_by_whole_names():
