@@ -202,3 +202,125 @@ def test_carry_gives_a_pool_thread_its_parent():
     assert [(s.name, s.parent) for s in spans] == [
         ("root", -1), ("child", 0), ("child", -1)]
     assert trace.carry(work) is work
+
+
+# -- the lossless coder --------------------------------------------------------
+
+LOSSLESS_SPANS = ("lossless.prep", "lossless.predict",
+                  "lossless.cross_color", "lossless.entropy")
+
+
+@pytest.fixture(scope="module")
+def lossless_runs(images):
+    """encode(lossless=True) and an RGBA encode() whose ALPH plane the
+    lossless coder writes, each with tracing off and on: {name: (output
+    off, output on, spans on, the lossless counters' change on, the
+    native entropy coder's (pixels, is_level0) calls on)}."""
+    from webp_tpu_torch.lossless import encode as LE
+    from webp_tpu_torch.native import api
+
+    rgba = np.concatenate([images[1], np.full((48, 64, 1), 255, np.uint8)],
+                          axis=-1)
+    rgba[8:24, 10:40, 3] = np.arange(30, dtype=np.uint8) * 8
+    calls = {
+        "lossless": lambda: W.encode(images[0], lossless=True, device="cpu"),
+        "alpha": lambda: W.encode(rgba, device="cpu"),
+    }
+    coder = api.vp8l_encode_entropy_image
+    seen: list = []
+
+    def recorded(argb, xsize, quality, is_level0, method=4):
+        seen.append((np.asarray(argb).size, bool(is_level0)))
+        return coder(argb, xsize, quality, is_level0, method)
+
+    trace.disable()
+    out = {}
+    api.vp8l_encode_entropy_image = recorded
+    try:
+        for name, call in calls.items():
+            off = call()
+            seen.clear()
+            before = dict(LE.LOSSLESS)
+            on, spans = _traced(call)
+            delta = {k: LE.LOSSLESS[k] - before[k] for k in before}
+            out[name] = (off, on, spans, delta, list(seen))
+    finally:
+        api.vp8l_encode_entropy_image = coder
+    return out
+
+
+def test_lossless_tracing_leaves_the_files_alone(lossless_runs):
+    for name, (off, on, *_) in lossless_runs.items():
+        assert off == on, name
+    assert lossless_runs["lossless"][0][12:16] == b"VP8L"
+    assert b"ALPH" in lossless_runs["alpha"][0]
+
+
+def test_the_lossless_tree_records_under_encode(lossless_runs):
+    spans = lossless_runs["lossless"][2]
+    assert spans[0].name == "encode" and spans[0].parent == -1
+    (i,) = [k for k, s in enumerate(spans) if s.name == "lossless"]
+    assert spans[i].parent == 0
+    kids = {s.name for s in _children(spans, i)}
+    assert kids == set(LOSSLESS_SPANS)
+    for s in spans:
+        if s.name.startswith("lossless."):
+            assert s.parent == i, s.name
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert p.start <= s.start and s.end <= p.end, (p.name, s.name)
+
+
+def test_alphs_coder_spans_hang_under_the_carried_parent(lossless_runs):
+    spans = lossless_runs["alpha"][2]
+    assert spans[0].name == "encode"
+    coders = [s for s in spans if s.name == "lossless"]
+    assert coders and all(s.parent == 0 for s in coders)
+    assert all(s.thread != spans[0].thread for s in coders)
+    heads = {spans.index(s) for s in coders}
+    entropy = [s for s in spans if s.name == "lossless.entropy"]
+    assert entropy and all(s.parent in heads for s in entropy)
+
+
+@pytest.mark.parametrize("name", ["lossless", "alpha"])
+def test_the_lossless_counters_add_up(lossless_runs, name):
+    spans, delta, seen = lossless_runs[name][2:]
+    entropy = [s for s in spans if s.name == "lossless.entropy"]
+    assert delta["entropy_calls"] == len(seen) == len(entropy) > 0
+    assert delta["entropy_pixels"] == sum(n for n, _ in seen)
+    # Each candidate's main image is its one level-0 stream.
+    assert delta["candidates"] == sum(lv for _, lv in seen) > 0
+    assert delta["images"] == sum(s.name == "lossless" for s in spans) > 0
+    if name == "lossless":
+        assert delta["images"] == 1 and delta["candidates"] > 1
+
+
+def test_the_predictor_searchs_copies_go_through_the_counted_helpers(
+        monkeypatch, images):
+    """The upload and the fetch are device_encode's _upload and _fetch,
+    which count the bytes a copy to or from a CUDA device moves."""
+    from webp_tpu_torch.lossless import encode as LE
+
+    argb = LE.subtract_green(LE.rgba_to_argb(images[0]))
+    bits, (h, w) = 4, argb.shape
+    want = LE.predictor_transform(argb, bits, 75)
+    seen = []
+    upload, fetch = DE._upload, DE._fetch
+
+    def uploaded(t, dev):
+        seen.append(("h2d", t.nbytes))
+        return upload(t, dev)
+
+    def fetched(tensors):
+        out = fetch(tensors)
+        seen.append(("d2h", sum(a.nbytes for a in out)))
+        return out
+
+    monkeypatch.setattr(DE, "_upload", uploaded)
+    monkeypatch.setattr(DE, "_fetch", fetched)
+    before = dict(trace.BYTES)
+    got = LE.predictor_transform(argb, bits, 75, search="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    tiles = ((h + 15) >> 4) * ((w + 15) >> 4)
+    assert seen == [("h2d", h * w * 4), ("d2h", h * w * 8 + tiles * 4)]
+    assert trace.BYTES == before          # CPU copies are not counted

@@ -373,7 +373,8 @@ def _encode_lossy(a: np.ndarray, opts: EncoderOptions, device,
         frame = a if opts.exact else cleanup_transparent_lossy(a)
         with ThreadPoolExecutor(max_workers=1) as ex:
             alpha_future = ex.submit(
-                encode_alpha, a[..., 3], quality=opts.alpha_quality,
+                trace.carry(encode_alpha), a[..., 3],
+                quality=opts.alpha_quality,
                 method=opts.alpha_compression,
                 filtering=opts.alpha_filtering, effort=opts.method)
             return _encode_lossy_frame(frame, opts, device, _yuv_cache,

@@ -20,6 +20,11 @@ Where each part runs:
 The numpy predictor (_predictor_transform_numpy) and the numpy entropy
 coder (encode_entropy_image_numpy) are the plain versions the tests hold
 the native code against; no entry point reaches them.
+
+Each image records the spans `lossless`, `lossless.prep`,
+`lossless.predict`, `lossless.cross_color` and `lossless.entropy` while
+tracing is on, and counts into the "lossless" group (LOSSLESS) always;
+see trace.py.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..bitio.lossless import LosslessBitWriter
 from . import transforms as tf
 from .decode import CODE_TO_PLANE, sub_sample_size
@@ -39,6 +45,14 @@ WINDOW_SIZE = (1 << 20) - 120
 MAX_LENGTH = 4096
 HASH_BITS = 18
 HASH_SIZE = 1 << HASH_BITS
+
+# images: encode_vp8l_argb's images (a frame, or one filter candidate of
+# an ALPH plane); candidates: transform configurations encoded in full;
+# entropy_calls / entropy_pixels: the native entropy coder's calls and
+# the pixels they coded.
+LOSSLESS = trace.register("lossless", {"images": 0, "candidates": 0,
+                                       "entropy_calls": 0,
+                                       "entropy_pixels": 0})
 
 
 # ---------------------------------------------------------------------------
@@ -255,9 +269,12 @@ def _encode_entropy_coded_image(bw: LosslessBitWriter, argb: np.ndarray,
     by the native entropy coder."""
     from ..native.api import vp8l_encode_entropy_image
 
-    buf, nbits = vp8l_encode_entropy_image(argb, xsize, quality, is_level0,
-                                           method)
-    bw.append_bits_buffer(buf, nbits)
+    trace.count(LOSSLESS, "entropy_calls")
+    trace.count(LOSSLESS, "entropy_pixels", argb.size)
+    with trace.span("lossless.entropy"):
+        buf, nbits = vp8l_encode_entropy_image(argb, xsize, quality,
+                                               is_level0, method)
+        bw.append_bits_buffer(buf, nbits)
 
 
 def encode_entropy_image_numpy(bw: LosslessBitWriter, argb: np.ndarray,
@@ -409,12 +426,14 @@ def _tile_image(tile_modes: np.ndarray) -> np.ndarray:
             | (tile_modes.astype(np.uint32) << np.uint32(8))).reshape(-1)
 
 
+@trace.traced("lossless.predict")
 def predictor_transform(img: np.ndarray, bits: int, quality: int,
                         search=HOST):
     """Chooses per-tile predictors (entropy proxy: sum of |residual byte|
     distances from 0/256 wraparound) and returns (residuals, tile_image).
     search: HOST for the native C++ predictor, else the torch device on
-    which ops/lossless.py predictor_search runs; the same output."""
+    which ops/lossless.py predictor_search runs; the same output. The
+    copies to and from a CUDA device count in trace.BYTES."""
     if search == HOST:
         from ..native.api import vp8l_predictor_transform
 
@@ -422,12 +441,13 @@ def predictor_transform(img: np.ndarray, bits: int, quality: int,
         return out, _tile_image(tile_modes)
     import torch
 
+    from ..lossy.device_encode import _fetch, _upload
     from ..ops.lossless import predictor_search
 
-    dev = torch.device(search)
     t = torch.from_numpy(np.ascontiguousarray(img).view(np.int32))
-    out, modes = predictor_search(t.to(dev), bits)
-    return out.cpu().numpy().astype(np.uint32), _tile_image(modes.cpu().numpy())
+    out, modes = _fetch(predictor_search(_upload(t, torch.device(search)),
+                                         bits))
+    return out.astype(np.uint32), _tile_image(modes)
 
 
 def _predictor_transform_numpy(img: np.ndarray, bits: int):
@@ -530,21 +550,23 @@ def encode_vp8l(img: np.ndarray, quality: int = 75, method: int = 4,
                 search=HOST) -> bytes:
     """Encodes an RGB(A) uint8 array to a VP8L payload. search: where the
     predictor search runs (HOST: native C++; else a torch device)."""
-    argb = rgba_to_argb(np.asarray(img))
-    if not exact:
-        # Transparent-area cleanup (reference encode.go:944
-        # cleanupTransparentAreaLossless / libwebp
-        # WebPReplaceTransparentPixels): zero the RGB of fully-transparent
-        # pixels so LZ77 sees long runs of 0x00000000.
-        argb = np.where((argb >> np.uint32(24)) == 0, np.uint32(0), argb)
-    if near_lossless < 100:
-        from .near_lossless import apply_near_lossless
+    with trace.span("lossless"):
+        with trace.span("lossless.prep"):
+            argb = rgba_to_argb(np.asarray(img))
+            if not exact:
+                # Transparent-area cleanup (reference encode.go:944
+                # cleanupTransparentAreaLossless / libwebp
+                # WebPReplaceTransparentPixels): zero the RGB of
+                # fully-transparent pixels so LZ77 sees long runs of
+                # 0x00000000.
+                argb = np.where((argb >> np.uint32(24)) == 0, np.uint32(0),
+                                argb)
+            if near_lossless < 100:
+                from .near_lossless import apply_near_lossless
 
-        argb = apply_near_lossless(argb, near_lossless)
-    has_alpha = bool(((argb >> np.uint32(24)) != 255).any())
-    return encode_vp8l_argb(argb, quality=quality, method=method,
-                            with_header=True, alpha_hint=has_alpha,
-                            search=search)
+                argb = apply_near_lossless(argb, near_lossless)
+            has_alpha = bool(((argb >> np.uint32(24)) != 255).any())
+        return _encode_argb(argb, quality, method, True, has_alpha, search)
 
 
 def encode_vp8l_argb(argb: np.ndarray, quality: int = 75, method: int = 4,
@@ -552,6 +574,15 @@ def encode_vp8l_argb(argb: np.ndarray, quality: int = 75, method: int = 4,
                      search=HOST) -> bytes:
     """Encodes a packed ARGB uint32 [h, w] image; optionally headerless
     (as required for ALPH payloads). search: as in encode_vp8l."""
+    with trace.span("lossless"):
+        return _encode_argb(argb, quality, method, with_header, alpha_hint,
+                            search)
+
+
+def _encode_argb(argb: np.ndarray, quality: int, method: int,
+                 with_header: bool, alpha_hint: bool, search) -> bytes:
+    """encode_vp8l_argb inside its `lossless` span."""
+    trace.count(LOSSLESS, "images")
     h, w = argb.shape
 
     bw = LosslessBitWriter()
@@ -562,11 +593,14 @@ def encode_vp8l_argb(argb: np.ndarray, quality: int = 75, method: int = 4,
         bw.write_bits(1 if alpha_hint else 0, 1)
         bw.write_bits(0, 3)  # version
 
-    flat = argb.reshape(-1)
-    palette = build_palette(flat) if method > 0 else None
+    with trace.span("lossless.prep"):
+        flat = argb.reshape(-1)
+        palette = build_palette(flat) if method > 0 else None
 
     def _palette_body() -> tuple[bytes, int]:
-        packed, xbits = apply_palette(argb, palette)
+        trace.count(LOSSLESS, "candidates")
+        with trace.span("lossless.prep"):
+            packed, xbits = apply_palette(argb, palette)
         b2 = LosslessBitWriter()
         # Transform: color indexing.
         b2.write_bits(1, 1)  # transform present
@@ -594,7 +628,8 @@ def encode_vp8l_argb(argb: np.ndarray, quality: int = 75, method: int = 4,
         bw.append_bits_buffer(body, nbits)
         return bw.finish()
 
-    sg = subtract_green(argb)
+    with trace.span("lossless.prep"):
+        sg = subtract_green(argb)
 
     def _cross_color(residuals, bits):
         # Cross-color only at quality >= 50 (reference encode.go:277
@@ -603,7 +638,8 @@ def encode_vp8l_argb(argb: np.ndarray, quality: int = 75, method: int = 4,
         if quality >= 50 and method >= 2:
             from ..native.api import vp8l_cross_color
 
-            return vp8l_cross_color(residuals, bits)
+            with trace.span("lossless.cross_color"):
+                return vp8l_cross_color(residuals, bits)
         return None
 
     def _body(use_pred: bool, bits: int = 4, pred=None,
@@ -613,6 +649,7 @@ def encode_vp8l_argb(argb: np.ndarray, quality: int = 75, method: int = 4,
         cross-color) into its own bit buffer so configs can be compared
         by exact coded size. pred/cc: precomputed transform outputs
         (shared between the with- and without-cross-color variants)."""
+        trace.count(LOSSLESS, "candidates")
         b2 = LosslessBitWriter()
         if use_sg:
             b2.write_bits(1, 1)

@@ -24,6 +24,16 @@ The span names (fixed, so that metrics can cite them):
         tail.partition0, tail.assemble
       fallback             the exact host re-encode of an escape overflow
       encode.wrap          PSNR, LAST_STATS, the container
+      lossless             lossless/encode.py encode_vp8l, encode_vp8l_argb:
+                           one VP8L image (also under the ALPH thread's
+                           carried parent, the lossy `encode`)
+        lossless.prep      RGBA->ARGB, the transparent cleanup,
+                           near-lossless, build_palette, apply_palette,
+                           subtract-green
+        lossless.predict   predictor_transform whole: the upload, the
+                           search (on the device or native), the fetch
+        lossless.cross_color  the native cross-color search
+        lossless.entropy   each call of the native entropy coder
     stream                 encode_lossy_stream
       stream.upload        one batch's upload (the upload thread)
         stream.prep        one image's padding and YUV import (a pool thread)
@@ -44,8 +54,11 @@ counts, and count() adds to one under a lock. The groups: "launches"
 (kernel launches by kernel, ops/cuda.py LAUNCHES), "fallbacks" (images
 re-encoded on the host, lossy/device_encode.py FALLBACKS), "programs"
 ({"built": FastEncoder constructions, decode step loops and CUDA graph
-captures}) and "bytes" ({"h2d", "d2h": bytes the entry points copy to and
-from a CUDA device}).
+captures}), "bytes" ({"h2d", "d2h": bytes the entry points and the
+lossless predictor search copy to and from a CUDA device}) and
+"lossless" (lossless/encode.py LOSSLESS: {"images": VP8L images encoded,
+"candidates": transform configurations encoded in full, "entropy_calls",
+"entropy_pixels": the native entropy coder's calls and their pixels}).
 """
 
 from __future__ import annotations
