@@ -767,181 +767,22 @@ class VP8Encoder:
     # Syntax: partition 0.
     # ------------------------------------------------------------------
     def _emit_partition0(self) -> bytes:
+        """Partition 0 in one native call (native/api.py
+        write_partition0): the frame header, the coefficient-probability
+        updates of self.proba against COEFFS_PROBA0 and the MB modes."""
         from ..native import api as native
 
-        use_native = native.available()
-        bw = native.NativeBoolWriter() if use_native else BoolWriter()
-        bw.put_bit(0x80, 0)  # colorspace
-        bw.put_bit(0x80, 0)  # clamp type
-        # Segment header (RFC 6386 9.3).
-        if self.num_segments > 1:
-            bw.put_bit(0x80, 1)  # use_segment
-            bw.put_bit(0x80, 1)  # update_map
-            bw.put_bit(0x80, 1)  # update feature data
-            bw.put_bit(0x80, 1)  # absolute values
-            for sq in self.plan.quant:
-                bw.put_bit(0x80, 1)
-                bw.put_bits(sq, 7)
-                bw.put_bit(0x80, 0)  # sign
-            for fs in self.plan.fstrength:
-                bw.put_bit(0x80, 1)
-                bw.put_bits(fs, 6)
-                bw.put_bit(0x80, 0)
-            for pb in self.plan.probas:
-                if pb == 255:
-                    bw.put_bit(0x80, 0)
-                else:
-                    bw.put_bit(0x80, 1)
-                    bw.put_bits(pb, 8)
-        else:
-            bw.put_bit(0x80, 0)
-        # Filter header.
-        bw.put_bit(0x80, 1 if self.filter_simple else 0)
-        bw.put_bits(self.filter_level, 6)
-        bw.put_bits(self.filter_sharpness, 3)
-        bw.put_bit(0x80, 0)  # no lf deltas
-        # Partitions.
-        bw.put_bits({1: 0, 2: 1, 4: 2, 8: 3}[self.num_parts], 2)
-        # Quant params: base q + per-class deltas (y deltas 0; uv from SNS).
-        bw.put_bits(self.base_q, 7)
-        for _ in range(3):
-            bw.put_bit(0x80, 0)  # y1_dc, y2_dc, y2_ac deltas
-        for delta in (self.plan.dq_uv_dc, self.plan.dq_uv_ac):
-            if delta:
-                bw.put_bit(0x80, 1)
-                bw.put_signed_bits(delta, 4)
-            else:
-                bw.put_bit(0x80, 0)
-        bw.put_bit(0x80, 0)  # refresh entropy probs (keyframe: ignored)
-        # Coefficient probabilities: emit updates vs defaults.
-        upd = T.COEFFS_UPDATE_PROBA
-        dflt = T.COEFFS_PROBA0
-        for t in range(4):
-            for b in range(8):
-                for c in range(3):
-                    for p in range(11):
-                        pv = int(self.proba[t, b, c, p])
-                        if pv != int(dflt[t, b, c, p]):
-                            bw.put_bit(int(upd[t, b, c, p]), 1)
-                            bw.put_bits(pv, 8)
-                        else:
-                            bw.put_bit(int(upd[t, b, c, p]), 0)
-        # Skip flag.
-        if self.num_skip > 0:
-            bw.put_bit(0x80, 1)
-            bw.put_bits(self.skip_proba, 8)
-        else:
-            bw.put_bit(0x80, 0)
-        # MB modes.
-        if (use_native and self.num_segments > 1
-                and not hasattr(native.get(), "bw_write_mb_modes_seg")):
-            use_native = False  # prebuilt .so without the segment writer
-        if use_native:
-            nmb = self.mb_h * self.mb_w
-            bw.write_mb_modes(
-                np.ascontiguousarray(self.imodes.reshape(nmb, 16), dtype=np.uint8),
-                np.ascontiguousarray(self.is_i4.reshape(nmb), dtype=np.uint8),
-                np.ascontiguousarray(self.uvmode.reshape(nmb), dtype=np.uint8),
-                np.ascontiguousarray(self.skip.reshape(nmb), dtype=np.uint8),
-                1 if self.num_skip > 0 else 0, self.skip_proba,
-                np.ascontiguousarray(T.BMODE_PROBA, dtype=np.uint8),
-                np.ascontiguousarray(T.YMODES_INTRA4_TREE, dtype=np.int8),
-                self.mb_w, self.mb_h,
-                seg_map=np.ascontiguousarray(
-                    self.segment_map.reshape(nmb), dtype=np.uint8),
-                seg_probas=np.ascontiguousarray(
-                    self.plan.probas, dtype=np.uint8),
-                num_segments=self.num_segments)
-        else:
-            self._write_mb_modes(bw)
-        return bw.finish()
-
-    def _write_mb_modes(self, bw: BoolWriter) -> None:
-        tree = T.YMODES_INTRA4_TREE
-        bprob = T.BMODE_PROBA
-        top = np.zeros((self.mb_w, 4), dtype=np.uint8)
-        for mb_y in range(self.mb_h):
-            left = np.zeros(4, dtype=np.uint8)
-            for mb_x in range(self.mb_w):
-                if self.num_segments > 1:
-                    seg = int(self.segment_map[mb_y, mb_x])
-                    sp = self.plan.probas
-                    if seg < 2:
-                        bw.put_bit(sp[0], 0)
-                        bw.put_bit(sp[1], seg & 1)
-                    else:
-                        bw.put_bit(sp[0], 1)
-                        bw.put_bit(sp[2], seg & 1)
-                if self.num_skip > 0:
-                    bw.put_bit(self.skip_proba, 1 if self.skip[mb_y, mb_x] else 0)
-                if self.is_i4[mb_y, mb_x]:
-                    bw.put_bit(145, 0)
-                    modes = self.imodes[mb_y, mb_x]
-                    for y in range(4):
-                        ymode = left[y]
-                        for x in range(4):
-                            prob = bprob[top[mb_x, x], ymode]
-                            self._write_tree_b(bw, tree, prob, int(modes[y * 4 + x]))
-                            ymode = modes[y * 4 + x]
-                            top[mb_x, x] = ymode
-                        left[y] = ymode
-                else:
-                    mode = int(self.imodes[mb_y, mb_x, 0])
-                    bw.put_bit(145, 1)
-                    if mode == dsp.DC_PRED:
-                        bw.put_bit(156, 0)
-                        bw.put_bit(163, 0)
-                    elif mode == dsp.V_PRED:
-                        bw.put_bit(156, 0)
-                        bw.put_bit(163, 1)
-                    elif mode == dsp.H_PRED:
-                        bw.put_bit(156, 1)
-                        bw.put_bit(128, 0)
-                    else:  # TM
-                        bw.put_bit(156, 1)
-                        bw.put_bit(128, 1)
-                    top[mb_x, :] = mode
-                    left[:] = mode
-                uv = int(self.uvmode[mb_y, mb_x])
-                if uv == dsp.DC_PRED:
-                    bw.put_bit(142, 0)
-                elif uv == dsp.V_PRED:
-                    bw.put_bit(142, 1)
-                    bw.put_bit(114, 0)
-                elif uv == dsp.H_PRED:
-                    bw.put_bit(142, 1)
-                    bw.put_bit(114, 1)
-                    bw.put_bit(183, 0)
-                else:
-                    bw.put_bit(142, 1)
-                    bw.put_bit(114, 1)
-                    bw.put_bit(183, 1)
-
-    # mode -> [(prob_index, bit), ...] paths through YMODES_INTRA4_TREE.
-    _BMODE_PATHS = None
-
-    @classmethod
-    def _bmode_paths(cls):
-        if cls._BMODE_PATHS is None:
-            tree = T.YMODES_INTRA4_TREE
-            paths = {}
-
-            def rec(node, path):
-                for bit in (0, 1):
-                    child = int(tree[2 * node + bit])
-                    p2 = path + [(node, bit)]
-                    if child <= 0:
-                        paths[-child] = p2
-                    else:
-                        rec(child, p2)
-
-            rec(0, [])
-            cls._BMODE_PATHS = paths
-        return cls._BMODE_PATHS
-
-    def _write_tree_b(self, bw: BoolWriter, tree, probs, mode: int) -> None:
-        for node, bit in self._bmode_paths()[mode]:
-            bw.put_bit(int(probs[node]), bit)
+        nmb = self.mb_h * self.mb_w
+        plan = self.plan
+        return native.write_partition0(
+            self.num_segments, plan.quant, plan.fstrength, plan.probas,
+            self.filter_simple, self.filter_level, self.filter_sharpness,
+            {1: 0, 2: 1, 4: 2, 8: 3}[self.num_parts], self.base_q,
+            plan.dq_uv_dc, plan.dq_uv_ac, self.proba, self.num_skip > 0,
+            self.skip_proba, self.imodes.reshape(nmb, 16),
+            self.is_i4.reshape(nmb), self.uvmode.reshape(nmb),
+            self.skip.reshape(nmb), self.segment_map.reshape(nmb),
+            self.mb_w, self.mb_h)
 
     # ------------------------------------------------------------------
     # Probability optimization (parity with encode_proba.go optimizeProba).

@@ -1,10 +1,12 @@
 """ctypes bindings for the port's three native libraries.
 
-The encoder side (get()): the boolean writer, token emission,
+The encoder side (get()): partition 0 in one call, token emission,
 statistics, the closed-loop MB encode (the escape-overflow fallback and
 the host backend), the analysis alphas, the RGB -> YUV 4:2:0 importer
 and an elementwise powf; sources native/src/vp8_enc.cc, vp8_enc_loop.cc,
-yuv_import.cc, powf_array.cc and bitio.h.
+yuv_import.cc, powf_array.cc and bitio.h. Each call into it through a
+wrapper here adds 1 to trace.NATIVE["calls"]; each releases the GIL
+while it runs, so a pool thread retakes it once a call.
 
 The decoder side (get_dec()): the VP8 keyframe decoder (vp8_decode), its
 parse-only half for the device decode (vp8_parse), the loop filter's
@@ -25,32 +27,19 @@ failed build raises.
 from __future__ import annotations
 
 import ctypes as ct
+import functools
 
 import numpy as np
 
-from .. import _build
+from .. import _build, trace
 
 
 def _setup(lib):
-    lib.bw_new.restype = ct.c_void_p
-    lib.bw_free.argtypes = [ct.c_void_p]
-    lib.bw_put_bit.argtypes = [ct.c_void_p, ct.c_int, ct.c_int]
-    lib.bw_put_bits.argtypes = [ct.c_void_p, ct.c_uint32, ct.c_int]
-    lib.bw_put_signed_bits.argtypes = [ct.c_void_p, ct.c_int, ct.c_int]
-    lib.bw_size.argtypes = [ct.c_void_p]
-    lib.bw_size.restype = ct.c_long
-    lib.bw_finish.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_long]
-    lib.bw_finish.restype = ct.c_long
-    lib.bw_write_mb_modes.argtypes = [
-        ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-        ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int,
-    ]
-    if hasattr(lib, "bw_write_mb_modes_seg"):
-        lib.bw_write_mb_modes_seg.argtypes = [
-            ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-            ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int,
-            ct.c_void_p, ct.c_void_p, ct.c_int,
-        ]
+    lib.vp8_write_partition0.argtypes = (
+        [ct.c_int, ct.c_void_p] + [ct.c_int] * 7 + [ct.c_void_p] * 3
+        + [ct.c_int] * 2 + [ct.c_void_p] * 7 + [ct.c_int] * 2
+        + [ct.c_void_p, ct.c_long])
+    lib.vp8_write_partition0.restype = ct.c_long
     lib.vp8_emit_tokens.argtypes = [
         ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
         ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
@@ -89,56 +78,73 @@ def available() -> bool:
     return get() is not None
 
 
-class NativeBoolWriter:
-    """Drop-in replacement for bitio.bool.BoolWriter backed by C++."""
-
-    def __init__(self):
-        self._lib = get()
-        self._h = self._lib.bw_new()
-
-    def put_bit(self, prob: int, bit: int) -> int:
-        self._lib.bw_put_bit(self._h, prob, 1 if bit else 0)
-        return bit
-
-    def put_bits(self, value: int, nbits: int) -> None:
-        self._lib.bw_put_bits(self._h, value, nbits)
-
-    def put_signed_bits(self, value: int, nbits: int) -> None:
-        self._lib.bw_put_signed_bits(self._h, value, nbits)
-
-    def num_bytes(self) -> int:
-        return int(self._lib.bw_size(self._h))
-
-    def write_mb_modes(self, imodes, is_i4, uvmode, skip, use_skip, skip_prob,
-                       bmode_prob, tree, mb_w, mb_h, seg_map=None,
-                       seg_probas=None, num_segments=1) -> None:
-        if num_segments > 1:
-            self._lib.bw_write_mb_modes_seg(
-                self._h,
-                _ptr(imodes), _ptr(is_i4), _ptr(uvmode), _ptr(skip),
-                int(use_skip), int(skip_prob), _ptr(bmode_prob), _ptr(tree),
-                mb_w, mb_h, _ptr(seg_map), _ptr(seg_probas),
-                int(num_segments))
-            return
-        self._lib.bw_write_mb_modes(
-            self._h,
-            _ptr(imodes), _ptr(is_i4), _ptr(uvmode), _ptr(skip),
-            int(use_skip), int(skip_prob), _ptr(bmode_prob), _ptr(tree),
-            mb_w, mb_h)
-
-    def finish(self) -> bytes:
-        cap = self.num_bytes() + 64
-        out = np.zeros(cap, dtype=np.uint8)
-        n = self._lib.bw_finish(self._h, _ptr(out), cap)
-        assert n >= 0
-        data = bytes(out[:n].tobytes())
-        self._lib.bw_free(self._h)
-        self._h = None
-        return data
-
-
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ct.c_void_p)
+
+
+def _u8(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _enc_tables():
+    """The spec tables partition 0 reads (lossy/tables.py): COEFFS_PROBA0,
+    COEFFS_UPDATE_PROBA, BMODE_PROBA as uint8, YMODES_INTRA4_TREE as int8."""
+    from ..lossy import tables as T
+
+    return (_u8(T.COEFFS_PROBA0), _u8(T.COEFFS_UPDATE_PROBA),
+            _u8(T.BMODE_PROBA),
+            np.ascontiguousarray(T.YMODES_INTRA4_TREE, dtype=np.int8))
+
+
+def _part0_cap(n_mb: int) -> int:
+    """The first try's output buffer for partition 0: the header's
+    at most ~2.2 KB and a few bytes an MB, with room to spare."""
+    return 4096 + 32 * n_mb
+
+
+def write_partition0(num_segments: int, seg_quant, seg_fstrength,
+                     seg_probas, filter_simple: bool, filter_level: int,
+                     filter_sharpness: int, log2_parts: int, base_q: int,
+                     dq_uv_dc: int, dq_uv_ac: int, proba: np.ndarray,
+                     use_skip: bool, skip_prob: int, imodes: np.ndarray,
+                     is_i4: np.ndarray, uvmode: np.ndarray, skip: np.ndarray,
+                     seg_map, mb_w: int, mb_h: int) -> bytes:
+    """All of partition 0 (vp8_write_partition0 in native/src/vp8_enc.cc)
+    in one native call: the frame header, the coefficient-probability
+    updates of proba [4, 8, 3, 11] against COEFFS_PROBA0 and the MB modes
+    (imodes [n_mb, 16], is_i4 / uvmode / skip [n_mb]; seg_map [n_mb] is
+    read only when num_segments > 1, and may be None otherwise). A buffer
+    too small for the first try is retried once at the size the call
+    reports; the bytes are never truncated."""
+    lib = get()
+    p0, upd, bmode, tree = _enc_tables()
+    hdr = np.array([*seg_quant, *seg_fstrength, *seg_probas], np.int32)
+    pr = _u8(proba)
+    im, i4, uv, sk = _u8(imodes), _u8(is_i4), _u8(uvmode), _u8(skip)
+    seg = _u8(seg_map) if num_segments > 1 else None
+    n_mb = mb_w * mb_h
+    per_mb = [a.size for a in (i4, uv, sk, seg) if a is not None]
+    if (hdr.size != 11 or pr.size != p0.size or im.size != 16 * n_mb
+            or any(n != n_mb for n in per_mb)):
+        raise ValueError("write_partition0: field sizes do not match "
+                         f"{mb_w}x{mb_h} macroblocks")
+    cap = _part0_cap(n_mb)
+    for _ in range(2):
+        out = np.empty(cap, dtype=np.uint8)
+        trace.count(trace.NATIVE, "calls")
+        n = lib.vp8_write_partition0(
+            int(num_segments), _ptr(hdr), int(bool(filter_simple)),
+            int(filter_level), int(filter_sharpness), int(log2_parts),
+            int(base_q), int(dq_uv_dc), int(dq_uv_ac), _ptr(pr), _ptr(p0),
+            _ptr(upd), int(bool(use_skip)), int(skip_prob), _ptr(im),
+            _ptr(i4), _ptr(uv), _ptr(sk),
+            None if seg is None else _ptr(seg), _ptr(bmode), _ptr(tree),
+            int(mb_w), int(mb_h), _ptr(out), cap)
+        if n >= 0:
+            return out[:n].tobytes()
+        cap = -n
+    raise RuntimeError("native partition 0: the retry's buffer was short")
 
 
 def emit_tokens(levels: np.ndarray, y2_levels: np.ndarray, is_i4: np.ndarray,
@@ -152,6 +158,7 @@ def emit_tokens(levels: np.ndarray, y2_levels: np.ndarray, is_i4: np.ndarray,
     pr = np.ascontiguousarray(proba, dtype=np.uint8)
     cap = levels.size * 4 + 65536
     out = np.zeros(cap, dtype=np.uint8)
+    trace.count(trace.NATIVE, "calls")
     n = lib.vp8_emit_tokens(_ptr(levels), _ptr(y2), _ptr(i4), _ptr(sk),
                             _ptr(pr), mb_w, mb_h, int(use_skip), part_idx,
                             num_parts, _ptr(out), cap)
@@ -168,6 +175,7 @@ def record_stats(levels, y2_levels, is_i4, skip, mb_w, mb_h,
     i4 = np.ascontiguousarray(is_i4, dtype=np.uint8)
     sk = np.ascontiguousarray(skip, dtype=np.uint8)
     stats = np.zeros((4, 8, 3, 11, 2), dtype=np.int64)
+    trace.count(trace.NATIVE, "calls")
     lib.vp8_record_stats(_ptr(levels), _ptr(y2), _ptr(i4), _ptr(sk),
                          mb_w, mb_h, int(use_skip), _ptr(stats))
     return stats
@@ -209,6 +217,7 @@ def vp8_encode_mbs(srcY, srcU, srcV, mb_w, mb_h, seg_map, quant, lambdas,
     recY = np.zeros_like(srcY)
     recU = np.zeros_like(srcU)
     recV = np.zeros_like(srcV)
+    trace.count(trace.NATIVE, "calls")
     lib.vp8_encode_mbs(
         _ptr(srcY), _ptr(srcU), _ptr(srcV), mb_w, mb_h, _ptr(seg),
         _ptr(quant), _ptr(lam), _ptr(pr), _ptr(ctab), _ptr(ec), _ptr(lf),
@@ -235,6 +244,7 @@ def vp8_compute_alphas(Y, U, V, mb_w, mb_h):
     V = np.ascontiguousarray(V, dtype=np.uint8)
     mixed = np.zeros(mb_w * mb_h, dtype=np.int32)
     guv = np.zeros(1, dtype=np.int32)
+    trace.count(trace.NATIVE, "calls")
     lib.vp8_compute_alphas(_ptr(Y), _ptr(U), _ptr(V), mb_w, mb_h,
                            _ptr(mixed), _ptr(guv))
     return mixed, int(guv[0])
@@ -251,6 +261,7 @@ def native_yuv_import(rgb: np.ndarray):
     Y = np.empty((mbh * 16, mbw * 16), dtype=np.uint8)
     U = np.empty((mbh * 8, mbw * 8), dtype=np.uint8)
     V = np.empty((mbh * 8, mbw * 8), dtype=np.uint8)
+    trace.count(trace.NATIVE, "calls")
     lib.yuv_import(_ptr(rgb), h, w, _ptr(Y), _ptr(U), _ptr(V))
     return Y, U, V
 
@@ -261,6 +272,7 @@ def powf_array(x: np.ndarray, e: float) -> np.ndarray:
     lib = get()
     x = np.ascontiguousarray(x, dtype=np.float32)
     y = np.empty_like(x)
+    trace.count(trace.NATIVE, "calls")
     lib.powf_array(_ptr(x), float(np.float32(e)), _ptr(y), x.size)
     return y
 

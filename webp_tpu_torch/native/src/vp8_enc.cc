@@ -1,8 +1,9 @@
 // VP8 encoder host-side entropy coding (native fast path).
 //
-// Mirrors webp_tpu_torch/lossy/encode.py's token writer / mode writer / stats
-// recorder byte-for-byte: the Python implementations are the conformance
-// oracle (differentially tested in tests/test_native.py).
+// Mirrors webp_tpu_torch/lossy/encode.py's token writer and stats recorder
+// byte-for-byte (the Python implementations are the conformance oracle);
+// vp8_write_partition0 writes partition 0 whole, held against the JAX
+// package's Python writer in tests/test_torch_partition0.py.
 
 #include <cstdint>
 #include <cstring>
@@ -230,35 +231,13 @@ using namespace webptpu;
 
 extern "C" {
 
-// Stateful bool writer handle (header bits driven from Python).
-void* bw_new() { return new BoolWriter(); }
-void bw_free(void* h) { delete (BoolWriter*)h; }
-void bw_put_bit(void* h, int prob, int bit) {
-  ((BoolWriter*)h)->put_bit(prob, bit);
-}
-void bw_put_bits(void* h, uint32_t v, int n) { ((BoolWriter*)h)->put_bits(v, n); }
-void bw_put_signed_bits(void* h, int v, int n) {
-  ((BoolWriter*)h)->put_signed_bits(v, n);
-}
-long bw_size(void* h) { return (long)((BoolWriter*)h)->buf.size(); }
-long bw_finish(void* h, uint8_t* out, long cap) {
-  BoolWriter* bw = (BoolWriter*)h;
-  bw->finish();
-  long n = (long)bw->buf.size();
-  if (n > cap) return -1;
-  memcpy(out, bw->buf.data(), n);
-  return n;
-}
-
-// Writes the per-MB mode records into an existing bool writer (partition 0).
-static void write_mb_modes_impl(void* h, const uint8_t* imodes,
-                       const uint8_t* is_i4, const uint8_t* uvmode,
-                       const uint8_t* skip, int use_skip, int skip_prob,
-                       const uint8_t* bmode_prob,
-                       const int8_t* tree, int mb_w, int mb_h,
-                       const uint8_t* seg_map, const uint8_t* seg_probas,
-                       int num_segments) {
-  BoolWriter* bw = (BoolWriter*)h;
+// Writes the per-MB mode records (RFC 6386 §19.3) into a bool writer.
+static void write_mb_modes(BoolWriter* bw, const uint8_t* imodes,
+                           const uint8_t* is_i4, const uint8_t* uvmode,
+                           const uint8_t* skip, int use_skip, int skip_prob,
+                           const uint8_t* bmode_prob, const int8_t* tree,
+                           int mb_w, int mb_h, const uint8_t* seg_map,
+                           const int32_t* seg_probas, int num_segments) {
   // Precompute tree paths for each mode.
   int path_node[10][8], path_bit[10][8], path_len[10];
   for (int m = 0; m < 10; ++m) path_len[m] = 0;
@@ -359,6 +338,93 @@ static void write_mb_modes_impl(void* h, const uint8_t* imodes,
   }
 }
 
+// Writes all of partition 0 in one call: the colour space and clamp
+// bits, the segment header (4 quantizers, 4 filter strengths, the 3 tree
+// probabilities, 255 = not sent), the filter header, the partition
+// count, the quantizer indices, the refresh bit, the 1,056 coefficient-
+// probability updates against proba0 under update_proba, the skip flag
+// and the MB modes. seg_hdr: quant[4], fstrength[4], probas[3]; seg_map
+// is read only when num_segments > 1. Returns the byte count, or minus
+// the bytes needed (nothing copied) when they exceed cap.
+long vp8_write_partition0(int num_segments, const int32_t* seg_hdr,
+                          int filter_simple, int filter_level,
+                          int filter_sharpness, int log2_parts, int base_q,
+                          int dq_uv_dc, int dq_uv_ac, const uint8_t* proba,
+                          const uint8_t* proba0, const uint8_t* update_proba,
+                          int use_skip, int skip_prob, const uint8_t* imodes,
+                          const uint8_t* is_i4, const uint8_t* uvmode,
+                          const uint8_t* skip, const uint8_t* seg_map,
+                          const uint8_t* bmode_prob, const int8_t* tree,
+                          int mb_w, int mb_h, uint8_t* out, long cap) {
+  BoolWriter bw;
+  bw.put_bit(0x80, 0);  // colour space
+  bw.put_bit(0x80, 0);  // clamp type
+  if (num_segments > 1) {
+    bw.put_bit(0x80, 1);  // use_segment
+    bw.put_bit(0x80, 1);  // update_map
+    bw.put_bit(0x80, 1);  // update feature data
+    bw.put_bit(0x80, 1);  // absolute values
+    for (int i = 0; i < 4; ++i) {
+      bw.put_bit(0x80, 1);
+      bw.put_bits((uint32_t)seg_hdr[i], 7);
+      bw.put_bit(0x80, 0);  // sign
+    }
+    for (int i = 4; i < 8; ++i) {
+      bw.put_bit(0x80, 1);
+      bw.put_bits((uint32_t)seg_hdr[i], 6);
+      bw.put_bit(0x80, 0);
+    }
+    for (int i = 8; i < 11; ++i) {
+      if (seg_hdr[i] == 255) {
+        bw.put_bit(0x80, 0);
+      } else {
+        bw.put_bit(0x80, 1);
+        bw.put_bits((uint32_t)seg_hdr[i], 8);
+      }
+    }
+  } else {
+    bw.put_bit(0x80, 0);
+  }
+  bw.put_bit(0x80, filter_simple ? 1 : 0);
+  bw.put_bits((uint32_t)filter_level, 6);
+  bw.put_bits((uint32_t)filter_sharpness, 3);
+  bw.put_bit(0x80, 0);  // no loop-filter deltas
+  bw.put_bits((uint32_t)log2_parts, 2);
+  bw.put_bits((uint32_t)base_q, 7);
+  for (int i = 0; i < 3; ++i) bw.put_bit(0x80, 0);  // y1_dc, y2_dc, y2_ac
+  for (int delta : {dq_uv_dc, dq_uv_ac}) {
+    if (delta) {
+      bw.put_bit(0x80, 1);
+      bw.put_signed_bits(delta, 4);
+    } else {
+      bw.put_bit(0x80, 0);
+    }
+  }
+  bw.put_bit(0x80, 0);  // refresh entropy probs (keyframe: ignored)
+  for (int i = 0; i < 4 * 8 * 3 * 11; ++i) {
+    if (proba[i] != proba0[i]) {
+      bw.put_bit(update_proba[i], 1);
+      bw.put_bits(proba[i], 8);
+    } else {
+      bw.put_bit(update_proba[i], 0);
+    }
+  }
+  if (use_skip) {
+    bw.put_bit(0x80, 1);
+    bw.put_bits((uint32_t)skip_prob, 8);
+  } else {
+    bw.put_bit(0x80, 0);
+  }
+  write_mb_modes(&bw, imodes, is_i4, uvmode, skip, use_skip, skip_prob,
+                 bmode_prob, tree, mb_w, mb_h, seg_map, seg_hdr + 8,
+                 num_segments);
+  bw.finish();
+  long n = (long)bw.buf.size();
+  if (n > cap) return -n;
+  memcpy(out, bw.buf.data(), n);
+  return n;
+}
+
 // Emits one token partition. Returns byte count or -1 on overflow.
 long vp8_emit_tokens(const int32_t* levels, const int32_t* y2_levels,
                      const uint8_t* is_i4, const uint8_t* skip,
@@ -432,24 +498,3 @@ void vp8_record_stats(const int32_t* levels, const int32_t* y2_levels,
 }
 
 }  // extern "C"
-
-extern "C" void bw_write_mb_modes(void* h, const uint8_t* imodes,
-                       const uint8_t* is_i4, const uint8_t* uvmode,
-                       const uint8_t* skip, int use_skip, int skip_prob,
-                       const uint8_t* bmode_prob,
-                       const int8_t* tree, int mb_w, int mb_h) {
-  write_mb_modes_impl(h, imodes, is_i4, uvmode, skip, use_skip, skip_prob,
-                      bmode_prob, tree, mb_w, mb_h, nullptr, nullptr, 1);
-}
-
-extern "C" void bw_write_mb_modes_seg(void* h, const uint8_t* imodes,
-                       const uint8_t* is_i4, const uint8_t* uvmode,
-                       const uint8_t* skip, int use_skip, int skip_prob,
-                       const uint8_t* bmode_prob,
-                       const int8_t* tree, int mb_w, int mb_h,
-                       const uint8_t* seg_map, const uint8_t* seg_probas,
-                       int num_segments) {
-  write_mb_modes_impl(h, imodes, is_i4, uvmode, skip, use_skip, skip_prob,
-                      bmode_prob, tree, mb_w, mb_h, seg_map, seg_probas,
-                      num_segments);
-}

@@ -55,10 +55,14 @@ counts, and count() adds to one under a lock. The groups: "launches"
 re-encoded on the host, lossy/device_encode.py FALLBACKS), "programs"
 ({"built": FastEncoder constructions, decode step loops and CUDA graph
 captures}), "bytes" ({"h2d", "d2h": bytes the entry points and the
-lossless predictor search copy to and from a CUDA device}) and
+lossless predictor search copy to and from a CUDA device}),
 "lossless" (lossless/encode.py LOSSLESS: {"images": VP8L images encoded,
 "candidates": transform configurations encoded in full, "entropy_calls",
-"entropy_pixels": the native entropy coder's calls and their pixels}).
+"entropy_pixels": the native entropy coder's calls and their pixels}) and
+"native" ({"calls": calls into the native encoder library through
+native/api.py's wrappers, each a GIL hand-off: partition 0, token
+emission, statistics, the host MB loop, the analysis alphas, the YUV
+importer, powf}).
 """
 
 from __future__ import annotations
@@ -212,3 +216,4 @@ def reset_counters() -> None:
 
 PROGRAMS = register("programs", {"built": 0})
 BYTES = register("bytes", {"h2d": 0, "d2h": 0})
+NATIVE = register("native", {"calls": 0})
