@@ -1,7 +1,9 @@
-"""Partition 0 in one native call: the port's _emit_partition0 against the
-reference's pure-Python writer on the same encoder fields, its retry
-when the first buffer is short, and the `native` counter's crossings per
-image of the device path's host tail, on the CPU (no JAX program)."""
+"""Partition 0 in one native call: the port's frame writer (lossy/frame.py
+partition0) against the reference's pure-Python writer on the same
+encoder fields, its retry when the first buffer is short, the `native`
+counter's crossings per image of the device path's host tail, and the
+host tail's one entry (DeviceVP8Encoder.finish) on every device path, on
+the CPU (no JAX program)."""
 
 from types import SimpleNamespace
 
@@ -10,9 +12,10 @@ import pytest
 
 import webp_tpu.lossy.encode as enc_ref
 import webp_tpu.native.api as native_ref
+import webp_tpu_torch
 from webp_tpu_torch import trace
 from webp_tpu_torch.lossy import device_encode as DE
-from webp_tpu_torch.lossy import encode as enc_port
+from webp_tpu_torch.lossy import frame as F
 from webp_tpu_torch.lossy import tables as T
 from webp_tpu_torch.lossy.encode import LossyConfig
 from webp_tpu_torch.native import api
@@ -71,6 +74,20 @@ def _encoder(cls, fields):
     return enc
 
 
+def _frame(fields):
+    """The port's frame of the same fields (the segment map in its plan)."""
+    f = {k: v.copy() if isinstance(v, np.ndarray) else v
+         for k, v in fields.items()}
+    plan = SimpleNamespace(**vars(f["plan"]), segment_map=f["segment_map"])
+    return F.Frame(
+        16 * f["mb_w"], 16 * f["mb_h"], levels=None, y2_levels=None,
+        imodes=f["imodes"], uvmode=f["uvmode"], is_i4=f["is_i4"],
+        skip=f["skip"], plan=plan, filter_simple=f["filter_simple"],
+        filter_sharpness=f["filter_sharpness"],
+        filter_level=f["filter_level"], num_parts=f["num_parts"],
+        proba=f["proba"], skip_proba=f["skip_proba"])
+
+
 # (segments, tree probabilities, num_parts, simple filter, sharpness,
 #  (dq_uv_dc, dq_uv_ac), skip used, an update in every band, short buffer)
 CASES = {
@@ -105,7 +122,7 @@ def test_partition0_equals_the_reference(name, monkeypatch):
     if short:
         monkeypatch.setattr(api, "_part0_cap", lambda n_mb: 1)
     before = trace.counters()["native"]["calls"]
-    got = _encoder(enc_port.VP8Encoder, fields)._emit_partition0()
+    got = F.partition0(_frame(fields))
     assert got == want
     assert trace.counters()["native"]["calls"] - before == (2 if short
                                                             else 1)
@@ -134,10 +151,10 @@ def test_the_tail_crosses_into_native_code_2_plus_num_parts_times(
     try:
         trace.reset_counters()
         assert trace.counters()["native"] == {"calls": 0}
-        enc = DE.planeless(48, 32, cfg)
+        enc = DE.DeviceVP8Encoder(48, 32, cfg)
         enc.finish(device_fields)
-        assert trace.counters()["native"]["calls"] == 2 + enc.num_parts
-        assert enc.num_parts == 1 << partitions
+        assert trace.counters()["native"]["calls"] == 2 + (1 << partitions)
+        assert len(enc.token_sizes) == 1 << partitions
     finally:
         for name, g in saved.items():
             trace.COUNTERS[name].update(g)
@@ -160,3 +177,40 @@ def test_partition0_refuses_fields_of_another_size(bad):
                  "seg_probas": dict(seg_probas=[1, 2])}[bad])
     with pytest.raises(ValueError, match="field sizes"):
         api.write_partition0(**args)
+
+
+# The entry points whose device tails the benchmark's host-tail metrics
+# time, each on 3 images of 48x32 (the stream in batches of 2).
+SEAM_ENTRIES = {
+    "encode_lossy_stream": lambda imgs: DE.encode_lossy_stream(
+        imgs, batch=2, device="cpu"),
+    "encode_lossy_batch": lambda imgs: DE.encode_lossy_batch(
+        np.stack(imgs), device="cpu"),
+    "encode": lambda imgs: [webp_tpu_torch.encode(im, device="cpu")
+                            for im in imgs],
+}
+
+
+@pytest.mark.parametrize("entry", list(SEAM_ENTRIES))
+def test_every_device_tail_enters_finish_once_per_image(entry, monkeypatch):
+    """benchmark/harness/spans.py times the host tail by replacing
+    DeviceVP8Encoder.finish on the class in traced runs: each device tail
+    must call it through an instance, looked up at call time, once per
+    image, and the wrapped tails write the same files."""
+    rng = np.random.default_rng(11)
+    y, x = np.mgrid[0:32, 0:48]
+    imgs = [(np.stack([x * (3 + i), y * 5, (x + y) * 2], -1)
+             + rng.integers(0, 30, (32, 48, 3))).clip(0, 255).astype(
+                 np.uint8) for i in range(3)]
+    run = SEAM_ENTRIES[entry]
+    want = run(imgs)
+    finish = DE.DeviceVP8Encoder.finish
+    calls = []
+
+    def counted(self, out_i):
+        calls.append(1)
+        return finish(self, out_i)
+
+    monkeypatch.setattr(DE.DeviceVP8Encoder, "finish", counted)
+    assert run(imgs) == want
+    assert len(calls) == len(imgs)

@@ -386,8 +386,7 @@ def _encode_lossy_frame(a: np.ndarray, opts: EncoderOptions, device,
                         _yuv_cache, alpha_future, uv_ac=False) -> bytes:
     """_encode_lossy's VP8 frame, then the container around it and the
     ALPH payload of alpha_future (None without alpha)."""
-    from .lossy.device_encode import (DeviceVP8Encoder, pad_to_macroblocks,
-                                      planeless)
+    from .lossy.device_encode import encode_image, pad_to_macroblocks
     from .lossy.encode import LossyConfig, VP8Encoder
 
     global LAST_STATS
@@ -419,31 +418,27 @@ def _encode_lossy_frame(a: np.ndarray, opts: EncoderOptions, device,
                                _yuv_cache)
         enc = VP8Encoder(Y, U, V, w, h, cfg)
         vp8 = enc.encode()
+        part0_size, token_sizes, rec = enc.part0_size, enc.token_sizes, \
+            enc.recY
     else:
         with trace.span("encode.plan"):
-            if opts.autofilter:
-                Y, U, V = _host_planes(rgb, opts, dither, False, _yuv_cache)
-                enc = DeviceVP8Encoder(Y, U, V, w, h, cfg)
-            else:
-                enc = planeless(w, h, cfg)
-            enc.dithering = dither
-            enc.rgb_input = pad_to_macroblocks(rgb[None])[0]
-        vp8 = enc.encode(device=device, uv_ac=uv_ac)
+            Y = (_host_planes(rgb, opts, dither, False, _yuv_cache)[0]
+                 if opts.autofilter else None)
+            padded = pad_to_macroblocks(rgb[None])[0]
+        vp8, part0_size, token_sizes, rec = encode_image(
+            padded, w, h, cfg, dither, Y, device, uv_ac)
     with trace.span("encode.wrap"):
         # PSNR from the encoder's own reconstruction where it exists on the
         # host (the reference's, lossy/encode.go:1614-1626).
         psnr = 0.0
-        rec = enc.recY
-        if np.any(rec):
-            d = (rec.astype(np.float64) - enc.srcY.astype(np.float64)).ravel()
+        if rec is not None and np.any(rec):
+            d = (rec.astype(np.float64) - Y.astype(np.float64)).ravel()
             se = float(np.dot(d, d))
             psnr = 99.0 if se == 0 else \
                 10.0 * np.log10(255.0 ** 2 * rec.size / se)
         LAST_STATS = EncStats(psnr=psnr, size=len(vp8), quality=opts.quality,
-                              passes=1,
-                              part0_size=getattr(enc, "stats_part0", 0),
-                              token_sizes=tuple(getattr(enc, "stats_parts",
-                                                        ())))
+                              passes=1, part0_size=part0_size,
+                              token_sizes=token_sizes)
         alpha = b""
         if alpha_future is not None:
             alpha = alpha_future.result()

@@ -3,78 +3,32 @@ per-segment quantizer modulation.
 
 Parity with the reference internal/lossy/encode_analysis.go (libwebp
 VP8EncAnalyze + VP8SetSegmentParams): DCT-histogram alpha per macroblock
-(batched array math — device-friendly), histogram k-means (6 iterations),
+(native), histogram k-means (6 iterations),
 segment alpha/beta normalization, SNS power-law quantizer modulation, UV
 delta derivation, and segment merging.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
 
-from . import dsp
+from ..native import api as native
+from . import tables as T
 
 MAX_ALPHA = 255
-ALPHA_SCALE = 2 * MAX_ALPHA
-MAX_COEFF_THRESH = 31
 MAX_ITERS_KMEANS = 6
-
-
-def _block16(plane: np.ndarray, mb_h: int, mb_w: int, size: int) -> np.ndarray:
-    b = size // 4
-    x = plane.reshape(mb_h, b, 4, mb_w, b, 4)
-    x = np.moveaxis(x, (0, 1, 2, 3, 4, 5), (0, 2, 4, 1, 3, 5))
-    return x.reshape(mb_h * mb_w, b * b, 4, 4).astype(np.int32)
-
-
-def _histogram_alpha(coeffs: np.ndarray) -> np.ndarray:
-    """Per-MB alpha from the |coeff|>>3 distribution (ALPHA_SCALE *
-    last_nonzero / max_count). coeffs: [nmb, nblocks, 16]."""
-    v = np.minimum(np.abs(coeffs) >> 3, MAX_COEFF_THRESH)
-    nmb = v.shape[0]
-    flat = v.reshape(nmb, -1)
-    # Per-MB histogram over 0..31.
-    hist = np.zeros((nmb, MAX_COEFF_THRESH + 1), dtype=np.int32)
-    for k in range(MAX_COEFF_THRESH + 1):
-        hist[:, k] = (flat == k).sum(axis=1)
-    max_value = hist.max(axis=1)
-    nz = hist > 0
-    last_nonzero = np.where(nz.any(axis=1),
-                            MAX_COEFF_THRESH - np.argmax(nz[:, ::-1], axis=1), 1)
-    last_nonzero = np.maximum(last_nonzero, 1)
-    alpha = np.where(max_value > 1, ALPHA_SCALE * last_nonzero // np.maximum(max_value, 1), 0)
-    return np.minimum(alpha, MAX_ALPHA)
 
 
 def compute_alphas(Y: np.ndarray, U: np.ndarray, V: np.ndarray,
                    mb_w: int, mb_h: int):
-    """Returns (mixed alphas [nmb], global_uv_alpha). Batched DC-prediction
-    DCT histograms (the reference tests DC/TM; DC-of-source is the batched
-    equivalent with negligible segmentation difference)."""
-    from ..native import api as native
-
-    r = native.vp8_compute_alphas(Y, U, V, mb_w, mb_h)
-    if r is not None:
-        return r
-    yb = _block16(Y, mb_h, mb_w, 16)  # [nmb, 16, 4, 4]
-    dc = yb.mean(axis=(1, 2, 3)).round().astype(np.int32)
-    pred = np.broadcast_to(dc[:, None, None, None], yb.shape)
-    luma = _histogram_alpha(dsp.fdct4x4(yb, pred).reshape(yb.shape[0], 16, 16))
-
-    ub = _block16(U, mb_h, mb_w, 8)
-    vb = _block16(V, mb_h, mb_w, 8)
-    uvb = np.concatenate([ub, vb], axis=1)  # [nmb, 8, 4, 4]
-    dcu = uvb.mean(axis=(1, 2, 3)).round().astype(np.int32)
-    preduv = np.broadcast_to(dcu[:, None, None, None], uvb.shape)
-    uv = _histogram_alpha(dsp.fdct4x4(uvb, preduv).reshape(uvb.shape[0], 8, 16))
-
-    mixed = (3 * luma + uv + 2) >> 2
-    mixed = np.clip(MAX_ALPHA - mixed, 0, MAX_ALPHA)
-    return mixed, int(uv.mean())
+    """Returns (mixed alphas [nmb], global_uv_alpha), from the native
+    analysis (native/src/vp8_enc_loop.cc): DC-prediction DCT histograms
+    (the reference tests DC/TM; DC-of-source is the batched equivalent
+    with negligible segmentation difference)."""
+    return native.vp8_compute_alphas(Y, U, V, mb_w, mb_h)
 
 
 @dataclass
@@ -146,30 +100,49 @@ def _quality_to_compression(quality: float) -> float:
     return linear_c ** (1.0 / 3.0)
 
 
+def _filter_strength_from_delta(sharpness: int, delta: int) -> int:
+    """Smallest filter level for which the filter modifies a step of
+    `delta` (libwebp filter_enc.c kLevelsFromDelta, generated from
+    VP8FilterStrengthFromDelta's closed form)."""
+    pos = max(0, min(63, delta))
+    if sharpness == 0:
+        return pos
+    # For sharpness > 0 the table is generated from the ilevel clamping rule.
+    for level in range(64):
+        ilevel = level
+        ilevel >>= 2 if sharpness > 4 else 1
+        ilevel = min(ilevel, 9 - sharpness)
+        ilevel = max(1, ilevel)
+        if 2 * level + ilevel >= 3 * pos:  # filter limit covers the delta
+            return level
+    return 63
+
+
+def trivial_plan(mb_w, mb_h, quality: int, filter_strength: int,
+                 filter_sharpness: int) -> SegmentPlan:
+    """The plan without segmentation or SNS modulation, which reads no
+    pixels: one quantizer from the quality and its filter strength."""
+    plan = SegmentPlan()
+    plan.segment_map = np.zeros(mb_w * mb_h, dtype=np.uint8)
+    plan.quant[:] = [max(0, min(127, int(127.0 * (1.0 - _quality_to_compression(quality)))))] * 4
+    if filter_strength > 0:
+        qstep = int(T.AC_TABLE[plan.quant[0]]) >> 2
+        base = _filter_strength_from_delta(max(0, min(7, filter_sharpness)), qstep)
+        f = base * (5 * filter_strength) // 256
+        plan.fstrength[:] = [0 if f < 2 else min(f, 63)] * 4
+    return plan
+
+
 def plan_segments(Y, U, V, mb_w, mb_h, quality: int, num_segs: int,
                   sns_strength: int, filter_strength: int,
                   filter_sharpness: int, preprocessing: int = 0) -> SegmentPlan:
     """Full analysis flow -> SegmentPlan (quantizers in absolute-delta form)."""
-    from . import tables as T
-    from .encode import _filter_strength_from_delta
-
-    plan = SegmentPlan()
     num_segs = max(1, min(4, num_segs))
     if num_segs == 1 and sns_strength <= 0:
-        # Trivial plan: no segmentation, no SNS modulation -> skip the
-        # analysis pass entirely (device path / method 0).
-        plan.num_segments = 1
-        plan.segment_map = np.zeros(mb_w * mb_h, dtype=np.uint8)
-        plan.quant[:] = [max(0, min(127, int(127.0 * (1.0 - _quality_to_compression(quality)))))] * 4
-        if filter_strength > 0:
-            from . import tables as T
-            from .encode import _filter_strength_from_delta
-
-            qstep = int(T.AC_TABLE[plan.quant[0]]) >> 2
-            base = _filter_strength_from_delta(max(0, min(7, filter_sharpness)), qstep)
-            f = base * (5 * filter_strength) // 256
-            plan.fstrength[:] = [0 if f < 2 else min(f, 63)] * 4
-        return plan
+        # No segmentation, no SNS modulation: skip the analysis pass.
+        return trivial_plan(mb_w, mb_h, quality, filter_strength,
+                            filter_sharpness)
+    plan = SegmentPlan()
     alphas, global_uv = compute_alphas(Y, U, V, mb_w, mb_h)
 
     if num_segs == 1:
@@ -280,9 +253,6 @@ def finalize_device_plan(seg_map: np.ndarray, seg_q, seg_beta,
     """Builds a SegmentPlan from device-computed segmentation (fastpath
     phase 0): per-segment filter strengths, equivalent-segment merging and
     segment-tree probabilities (the host-side tail of plan_segments)."""
-    from .encode import _filter_strength_from_delta
-    from . import tables as T
-
     plan = SegmentPlan()
     plan.num_segments = 4
     plan.segment_map = np.asarray(seg_map, dtype=np.uint8).reshape(-1)

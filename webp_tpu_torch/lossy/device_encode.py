@@ -1,11 +1,13 @@
 """Device-accelerated lossy encode: the batched device program on the card
-(ops/fastpath.py) plus the host tail — level unpacking, native entropy
-coding and VP8 frame assembly. Counterpart of
-webp_tpu/lossy/device_encode.py (its single-device batched path).
+(ops/fastpath.py) plus the host tail — level unpacking, the frame
+writer's native entropy coding and VP8 frame assembly (lossy/frame.py).
+Counterpart of webp_tpu/lossy/device_encode.py (its single-device batched
+path).
 
 The device returns each image's fields as one byte blob (BLOB_CHUNKS
-chunks); the host unpacks them, installs the device's segment plan into
-the frame header and entropy-codes the levels. An image whose escape
+chunks); the host tail (DeviceVP8Encoder.finish) unpacks them, installs
+the device's segment plan into the frame header and entropy-codes the
+levels. encode_image runs one image; an image whose escape
 list overflowed the device's capacity is re-encoded by the exact host
 encoder (from host planes of the same import: sharp-YUV planes from the
 host converter sharpyuv/convert.py when the device imported with sharp
@@ -18,6 +20,7 @@ is the exact-parity wavefront oracle (ops/wavefront.py).
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import functools
 
 import numpy as np
@@ -25,7 +28,8 @@ import torch
 
 from .. import trace
 from ..encoder import rgb_to_yuv420
-from . import tables as T
+from . import frame as F
+from .analysis import finalize_device_plan, trivial_plan
 from .encode import LossyConfig, VP8Encoder
 
 
@@ -74,81 +78,22 @@ def _mesh_devices(images, devices, sharp_yuv):
     return [torch.device(d) for d in devices]
 
 
-def planeless(width: int, height: int, cfg: LossyConfig):
-    """A DeviceVP8Encoder with zero host planes: the device computes every
-    field and the host plan is trivial (one segment, no SNS), so the host
-    planes are read only by the overflow fallback, which imports its own."""
-    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
-    y = np.zeros((mb_h * 16, mb_w * 16), np.uint8)
-    uv = np.zeros((mb_h * 8, mb_w * 8), np.uint8)
-    return DeviceVP8Encoder(y, uv, uv, width, height, cfg)
+class DeviceVP8Encoder:
+    """The host tail of the device program: one image's device fields
+    (its part of unpack_output_blob's dict) to a VP8 frame. The device
+    computes the segmentation and SNS too (fastpath phase 0); the tail
+    turns its segment tables into the frame header's plan. cfg: the
+    frame's options (quality, segments, filter, partitions, autofilter);
+    srcY: the host luma plane the autofilter search compares with, read
+    only with cfg.autofilter. After finish() or write(): part0_size,
+    token_sizes and, with cfg.autofilter, recY (the probe decode's
+    reconstruction)."""
 
-
-class DeviceVP8Encoder(VP8Encoder):
-    """VP8Encoder whose MB loop runs on the device (two-phase fast path).
-
-    Segmentation/SNS runs on the device too (fastpath phase 0); the host
-    plan is pinned trivial at init and replaced with the device plan after
-    the launch.
-    """
-
-    rgb_input = None  # uint8 [H, W, 3], padded to whole MBs, for encode()
-    dithering = 0.0   # the fallback's host import (rgb_to_yuv420)
-
-    def __init__(self, y, u, v, width, height, cfg):
-        import dataclasses
-
-        self.dev_segments = max(1, min(4, cfg.segments))
-        self.dev_sns = max(0, cfg.sns_strength)
-        cfg = dataclasses.replace(cfg, segments=1, sns_strength=0)
-        super().__init__(y, u, v, width, height, cfg)
-
-    def encode(self, device=None, uv_ac: bool = False) -> bytes:
-        """One image (rgb_input) through the device program at B=1, its
-        YUV import on the device, and the host tail. An escape list that
-        overflows the device's capacity re-encodes the image with the exact
-        host encoder, from host planes imported then (with self.dithering;
-        with sharp YUV, the host sharp converter's planes of the padded
-        image, as the reference's). device: None for the card, "cpu" for
-        the plain versions. Methods 0-2 (or i4_blocks off) run without
-        the I4 search; methods 5 and 6 run the closed loop at skew 2 with
-        the trellis, 6 with the in-loop search. uv_ac: the chroma AC
-        quantizer delta from the image's mean UV alpha
-        (fast_encode_fn's); the overflow fallback, on the host, does not
-        read it (the host encoder's own analysis sets that delta)."""
-        from ..ops.fastpath import fast_encode_fn, unpack_output_blob
-
-        use_i4 = bool(self.cfg.i4_blocks) and self.cfg.method >= 3
-        sk = 2 if self.cfg.method >= 5 and use_i4 else 1
-        # uv_ac is passed only when set: the default call configures the
-        # program with the reference's own arguments.
-        fn = fast_encode_fn(self.mb_w, self.mb_h, self.cfg.quality,
-                            self.dev_segments, self.dev_sns, use_i4,
-                            sharp_yuv=bool(self.cfg.sharp_yuv), sk=sk,
-                            trellis=self.cfg.method >= 5 and use_i4,
-                            i4_mode_search=self.cfg.method >= 6 and use_i4,
-                            **({"uv_ac": True} if uv_ac else {}))
-        with trace.span("encode.upload"):
-            x = _upload(torch.from_numpy(np.ascontiguousarray(
-                self.rgb_input[None])), _resolve_device(device))
-        with trace.span("device.program"):
-            out = fn.rgb_blob(x)
-        with trace.span("encode.fetch"):
-            chunks = _fetch(out)
-        with trace.span("encode.unpack"):
-            host = unpack_output_blob(chunks, fn.blob_spec)
-        if int(host["esc_cnt"][0]) > fn.esc_cap:
-            trace.count(FALLBACKS, "images")
-            with trace.span("fallback"):
-                if fn.sharp_yuv:
-                    Y, U, V = _fallback_planes(self.rgb_input, fn)
-                else:
-                    Y, U, V = rgb_to_yuv420(
-                        self.rgb_input[:self.height, :self.width],
-                        self.dithering)
-                return VP8Encoder(Y, U, V, self.width, self.height,
-                                  self.cfg).encode()
-        return self.finish({k: v[0] for k, v in host.items()})
+    def __init__(self, width: int, height: int, cfg: LossyConfig,
+                 srcY: np.ndarray = None):
+        self.width, self.height, self.cfg, self.srcY = width, height, cfg, srcY
+        self.mb_w, self.mb_h = (width + 15) >> 4, (height + 15) >> 4
+        self.part0_size, self.token_sizes, self.recY = 0, (), None
 
     def finish(self, out_i: dict) -> bytes:
         """Host tail for one image's device fields: unpack the levels,
@@ -156,104 +101,140 @@ class DeviceVP8Encoder(VP8Encoder):
         from ..ops.fastpath import unpack_levels
 
         with trace.span("tail"):
-            mb_w, mb_h = self.mb_w, self.mb_h
             with trace.span("tail.unpack"):
                 lv24 = unpack_levels(out_i["packed"], out_i["esc_idx"],
                                      out_i["esc_val"], out_i["esc_cnt"],
-                                     mb_w * mb_h)
-                self.proba = T.COEFFS_PROBA0.copy()
-                self.levels = lv24.astype(np.int32).reshape(mb_h, mb_w, 24, 16)
-                self.y2_levels = out_i["y2"].astype(np.int32).reshape(
-                    mb_h, mb_w, 16)
-                self.imodes = out_i["imodes"].reshape(mb_h, mb_w, 16).copy()
-                self.uvmode = out_i["uvmodes"].reshape(mb_h, mb_w)
-                self.skip = out_i["skip"].reshape(mb_h, mb_w).copy()
-                self.is_i4 = out_i["is_i4"].reshape(mb_h, mb_w).copy()
+                                     self.mb_w * self.mb_h)
+                f = self.frame(lv24, out_i)
             with trace.span("tail.plan"):
-                self.apply_device_plan(out_i["seg_map"], out_i["seg_q"],
-                                       out_i["seg_beta"],
-                                       dq_uv=out_i.get("dq_uv"))
-            return self._finish_bitstream()
+                self.install_plan(f, out_i)
+            return self.write(f)
 
-    def apply_device_plan(self, seg_map, seg_q, seg_beta,
-                          dq_uv=None) -> None:
-        """Installs the device-computed segmentation into the header plan.
-        dq_uv: optional (dq_uv_dc, dq_uv_ac) the device quantized chroma
-        with — written into the frame header."""
-        if self.dev_segments <= 1 or self.mb_h * self.mb_w < 4:
-            return
-        from .analysis import finalize_device_plan
+    def frame(self, lv24, fields) -> F.Frame:
+        """The frame of the device's levels lv24 [n_mb, 24, 16] and its
+        per-MB fields, without its plan (install_plan makes it)."""
+        return F.Frame(
+            self.width, self.height, lv24.astype(np.int32),
+            fields["y2"].astype(np.int32), fields["imodes"],
+            fields["uvmodes"], fields["is_i4"], fields["skip"].copy(),
+            plan=None, filter_level=0, **F.cfg_fields(self.cfg))
 
-        plan = finalize_device_plan(seg_map, seg_q, seg_beta,
-                                    self.cfg.filter_strength,
-                                    self.cfg.filter_sharpness)
-        if dq_uv is not None:
-            plan.dq_uv_dc = int(dq_uv[0])
-            plan.dq_uv_ac = int(dq_uv[1])
-        self.plan = plan
-        self.num_segments = plan.num_segments
-        self.segment_map = plan.segment_map.reshape(self.mb_h, self.mb_w)
-        self.base_q = plan.quant[0]
-        if self.cfg.filter_strength > 0:
-            self.filter_level = plan.fstrength[0]
+    def install_plan(self, f: F.Frame, fields) -> None:
+        """The frame's plan: where the device segmented (more than one
+        segment and at least 4 MBs), its segmentation (seg_map, seg_q,
+        seg_beta; dq_uv, where present, the (dc, ac) chroma deltas the
+        device quantized with), else one segment without SNS."""
+        cfg = self.cfg
+        if max(1, min(4, cfg.segments)) <= 1 or self.mb_w * self.mb_h < 4:
+            plan = trivial_plan(self.mb_w, self.mb_h, cfg.quality,
+                                cfg.filter_strength, cfg.filter_sharpness)
+        else:
+            plan = finalize_device_plan(fields["seg_map"], fields["seg_q"],
+                                        fields["seg_beta"],
+                                        cfg.filter_strength,
+                                        cfg.filter_sharpness)
+            dq_uv = fields.get("dq_uv")
+            if dq_uv is not None:
+                plan.dq_uv_dc = int(dq_uv[0])
+                plan.dq_uv_ac = int(dq_uv[1])
+        f.plan = plan
+        f.filter_level = plan.fstrength[0]
 
-    def _finish_bitstream(self) -> bytes:
-        total = self.mb_h * self.mb_w
-        self.num_skip = int(self.skip.sum())
-        self.skip_proba = max(1, min(255, (total - self.num_skip) * 255 // total)) \
-            if self.num_skip > 0 else 0
-        self.use_skip = self.num_skip > 0
-        if not self.use_skip:
-            self.skip[:] = False
-
+    def write(self, f: F.Frame) -> bytes:
+        """The frame's bytes, in the device tail's order: the
+        probabilities, the token partitions, the autofilter search on
+        their probe decode (cfg.autofilter), partition 0, the assembly."""
+        F.count_skips(f)
         with trace.span("tail.probas"):
-            self._optimize_probas()
+            F.code_probas(f)
         with trace.span("tail.tokens"):
-            parts = [self._emit_tokens(i) for i in range(self.num_parts)]
+            parts = F.token_partitions(f)
         if self.cfg.autofilter:
-            _finish_autofilter(self, parts)
+            self.recY = _probe_autofilter(f, parts, self.srcY)
         with trace.span("tail.partition0"):
-            part0 = self._emit_partition0()
-        self.stats_part0 = len(part0)
-        self.stats_parts = [len(p) for p in parts]
+            part0 = F.partition0(f)
+        self.part0_size, self.token_sizes = len(part0), tuple(map(len, parts))
         with trace.span("tail.assemble"):
-            return self._assemble_vp8(part0, parts)
-
-    def _assemble_vp8(self, part0, parts) -> bytes:
-        tag = (0) | (0 << 1) | (1 << 4) | (len(part0) << 5)
-        out = bytearray([tag & 0xFF, (tag >> 8) & 0xFF, (tag >> 16) & 0xFF])
-        out += bytes([0x9D, 0x01, 0x2A])
-        out += int(self.width & 0x3FFF).to_bytes(2, "little")
-        out += int(self.height & 0x3FFF).to_bytes(2, "little")
-        out += part0
-        for p in parts[:-1]:
-            out += len(p).to_bytes(3, "little")
-        for p in parts:
-            out += p
-        return bytes(out)
+            return F.assemble(f, part0, parts)
 
 
-def _finish_autofilter(enc, parts) -> None:
+def _probe_autofilter(f: F.Frame, parts, srcY) -> np.ndarray:
     """The device path's autofilter: the device keeps no host
-    reconstruction, so the bitstream is probe-decoded with the in-loop
-    filter off (the native decoder) to recover the unfiltered
-    reconstruction, on which the host's filter-strength search runs
-    (VP8Encoder.autofilter_search against the encoder's host planes)."""
+    reconstruction, so the frame is probe-decoded with the in-loop filter
+    off (the native decoder) to recover the unfiltered reconstruction, on
+    which the filter-strength search runs against the host luma srcY.
+    Returns that reconstruction, MB-padded by edge replication."""
     from .decode import decode_vp8_yuv
 
-    for i in range(4):
-        enc.plan.fstrength[i] = 0
-    enc.filter_level = 0
-    probe = enc._assemble_vp8(enc._emit_partition0(), parts)
-    Y, _, _ = decode_vp8_yuv(probe)
-    recY = np.zeros((enc.mb_h * 16, enc.mb_w * 16), np.uint8)
+    f.plan.fstrength[:] = [0] * 4
+    f.filter_level = 0
+    Y, _, _ = decode_vp8_yuv(F.assemble(f, F.partition0(f), parts))
+    recY = np.zeros((f.mb_h * 16, f.mb_w * 16), np.uint8)
     recY[:Y.shape[0], :Y.shape[1]] = Y
     if Y.shape[1] < recY.shape[1]:
         recY[:Y.shape[0], Y.shape[1]:] = Y[:, -1:]
     if Y.shape[0] < recY.shape[0]:
         recY[Y.shape[0]:] = recY[Y.shape[0] - 1]
-    enc.recY = recY
-    enc.autofilter_search()
+    F.autofilter_search(f, recY, srcY)
+    return recY
+
+
+def encode_image(rgb, width: int, height: int, cfg: LossyConfig,
+                 dithering: float = 0.0, srcY=None, device=None,
+                 uv_ac: bool = False):
+    """One image through the device program at B=1, its YUV import on the
+    device, and the host tail. rgb: uint8 [H, W, 3], the width x height
+    image padded to whole MBs. An escape list that overflows the device's
+    capacity re-encodes the image with the exact host encoder, from host
+    planes imported then (with `dithering`; with sharp YUV, the host sharp
+    converter's planes of the padded image, as the reference's). srcY:
+    the host luma plane the autofilter search reads (cfg.autofilter).
+    device: None for the card, "cpu" for the plain versions. Methods 0-2
+    (or i4_blocks off) run without the I4 search; methods 5 and 6 run the
+    closed loop at skew 2 with the trellis, 6 with the in-loop search.
+    uv_ac: the chroma AC quantizer delta from the image's mean UV alpha
+    (fast_encode_fn's); the overflow fallback, on the host, does not read
+    it (the host encoder's own analysis sets that delta).
+
+    Returns (the VP8 frame, partition 0's size, the token partitions'
+    sizes, the autofilter probe's reconstruction or None). The fallback
+    encodes with one segment and no SNS, and reports sizes 0 and () and
+    no reconstruction, as the reference's single-image fallback does
+    (ROADMAP queue A)."""
+    from ..ops.fastpath import fast_encode_fn, unpack_output_blob
+
+    use_i4 = bool(cfg.i4_blocks) and cfg.method >= 3
+    sk = 2 if cfg.method >= 5 and use_i4 else 1
+    # uv_ac is passed only when set: the default call configures the
+    # program with the reference's own arguments.
+    fn = fast_encode_fn((width + 15) >> 4, (height + 15) >> 4, cfg.quality,
+                        max(1, min(4, cfg.segments)),
+                        max(0, cfg.sns_strength), use_i4,
+                        sharp_yuv=bool(cfg.sharp_yuv), sk=sk,
+                        trellis=cfg.method >= 5 and use_i4,
+                        i4_mode_search=cfg.method >= 6 and use_i4,
+                        **({"uv_ac": True} if uv_ac else {}))
+    with trace.span("encode.upload"):
+        x = _upload(torch.from_numpy(np.ascontiguousarray(rgb[None])),
+                    _resolve_device(device))
+    with trace.span("device.program"):
+        out = fn.rgb_blob(x)
+    with trace.span("encode.fetch"):
+        chunks = _fetch(out)
+    with trace.span("encode.unpack"):
+        host = unpack_output_blob(chunks, fn.blob_spec)
+    if int(host["esc_cnt"][0]) > fn.esc_cap:
+        trace.count(FALLBACKS, "images")
+        with trace.span("fallback"):
+            if fn.sharp_yuv:
+                Y, U, V = _fallback_planes(rgb, fn)
+            else:
+                Y, U, V = rgb_to_yuv420(rgb[:height, :width], dithering)
+            one = dataclasses.replace(cfg, segments=1, sns_strength=0)
+            return VP8Encoder(Y, U, V, width, height, one).encode(), 0, (), None
+    tail = DeviceVP8Encoder(width, height, cfg, srcY)
+    vp8 = tail.finish({k: v[0] for k, v in host.items()})
+    return vp8, tail.part0_size, tail.token_sizes, tail.recY
 
 
 # Images that took the exact host fallback since the last reset (read by
@@ -317,7 +298,7 @@ def _emit(host, rgbs, fn, width, height, cfg, ex):
             with trace.span("fallback"):
                 Y, U, V = _fallback_planes(rgbs[i], fn)
                 return VP8Encoder(Y, U, V, width, height, cfg).encode()
-        return planeless(width, height, cfg).finish(
+        return DeviceVP8Encoder(width, height, cfg).finish(
             {k: v[i] for k, v in host.items()})
 
     return list(ex.map(trace.carry(emit), range(len(rgbs))))

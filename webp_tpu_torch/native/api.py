@@ -1,10 +1,11 @@
 """ctypes bindings for the port's three native libraries.
 
 The encoder side (get()): partition 0 in one call, token emission,
-statistics, the closed-loop MB encode (the escape-overflow fallback and
-the host backend), the analysis alphas, the RGB -> YUV 4:2:0 importer
-and an elementwise powf; sources native/src/vp8_enc.cc, vp8_enc_loop.cc,
-yuv_import.cc, powf_array.cc and bitio.h. Each call into it through a
+statistics (lossy/frame.py), the closed-loop MB encode and the analysis
+alphas (lossy/encode.py, the host backend and the escape-overflow
+fallback), the RGB -> YUV 4:2:0 importer and an elementwise powf;
+sources native/src/vp8_enc.cc, vp8_enc_loop.cc, yuv_import.cc,
+powf_array.cc and bitio.h. Each call into it through a
 wrapper here adds 1 to trace.NATIVE["calls"]; each releases the GIL
 while it runs, so a pool thread retakes it once a call.
 
@@ -50,6 +51,13 @@ def _setup(lib):
         ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
         ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
     ]
+    lib.vp8_encode_mbs.argtypes = [ct.c_void_p] * 3 + [ct.c_int] * 2 + \
+        [ct.c_void_p] * 8 + [ct.c_int, ct.c_int, ct.c_int64] + \
+        [ct.c_void_p] * 9
+    lib.vp8_encode_mbs.restype = None
+    lib.vp8_compute_alphas.argtypes = [ct.c_void_p] * 3 + [ct.c_int] * 2 + \
+        [ct.c_void_p] * 2
+    lib.vp8_compute_alphas.restype = None
     lib.yuv_import.argtypes = [
         ct.c_void_p, ct.c_int, ct.c_int,
         ct.c_void_p, ct.c_void_p, ct.c_void_p,
@@ -72,10 +80,6 @@ def get():
     if _lib is None:
         _lib = _setup(_build.load("webp_enc"))
     return _lib
-
-
-def available() -> bool:
-    return get() is not None
 
 
 def _ptr(a: np.ndarray):
@@ -184,18 +188,11 @@ def record_stats(levels, y2_levels, is_i4, skip, mb_w, mb_h,
 def vp8_encode_mbs(srcY, srcU, srcV, mb_w, mb_h, seg_map, quant, lambdas,
                    proba, cost_tables, method, i4_blocks, i4_header_cap):
     """Native closed-loop MB encode (mode RD + quant + reconstruction),
-    bit-exact vs lossy/encode.py's Python loop. Returns dict of per-MB
-    outputs + reconstructed planes, or None when unavailable."""
-    lib = get()
-    if lib is None or not hasattr(lib, "vp8_encode_mbs"):
-        return None
-    if not getattr(lib, "_enc_loop_ready", False):
-        lib.vp8_encode_mbs.argtypes = [ct.c_void_p] * 3 + [ct.c_int] * 2 + \
-            [ct.c_void_p] * 8 + [ct.c_int, ct.c_int, ct.c_int64] + \
-            [ct.c_void_p] * 9
-        lib._enc_loop_ready = True
+    bit-exact vs the JAX package's Python loop. Returns dict of per-MB
+    outputs + reconstructed planes."""
     from ..lossy import cost as C
 
+    lib = get()
     n_mb = mb_w * mb_h
     srcY = np.ascontiguousarray(srcY, dtype=np.uint8)
     srcU = np.ascontiguousarray(srcU, dtype=np.uint8)
@@ -231,14 +228,8 @@ def vp8_encode_mbs(srcY, srcU, srcV, mb_w, mb_h, seg_map, quant, lambdas,
 
 def vp8_compute_alphas(Y, U, V, mb_w, mb_h):
     """Native analysis-pass alphas -> (mixed [n_mb] i32, global_uv int),
-    bit-exact vs lossy/analysis.py compute_alphas. None if unavailable."""
+    bit-exact vs the JAX package's numpy compute_alphas."""
     lib = get()
-    if lib is None or not hasattr(lib, "vp8_compute_alphas"):
-        return None
-    if not getattr(lib, "_alphas_ready", False):
-        lib.vp8_compute_alphas.argtypes = [ct.c_void_p] * 3 + \
-            [ct.c_int] * 2 + [ct.c_void_p] * 2
-        lib._alphas_ready = True
     Y = np.ascontiguousarray(Y, dtype=np.uint8)
     U = np.ascontiguousarray(U, dtype=np.uint8)
     V = np.ascontiguousarray(V, dtype=np.uint8)

@@ -10,7 +10,7 @@
 namespace webptpu {
 
 // --- RFC 6386 boolean encoder (32-bit bottom register, carry into buffer).
-struct BoolWriter {
+struct BoolEncoder {
   std::vector<uint8_t> buf;
   uint32_t range = 255;
   uint32_t bottom = 0;

@@ -1,9 +1,9 @@
 // VP8 encoder host-side entropy coding (native fast path).
 //
-// Mirrors webp_tpu_torch/lossy/encode.py's token writer and stats recorder
-// byte-for-byte (the Python implementations are the conformance oracle);
-// vp8_write_partition0 writes partition 0 whole, held against the JAX
-// package's Python writer in tests/test_torch_partition0.py.
+// Mirrors the JAX package's token writer and stats recorder
+// (webp_tpu/lossy/encode.py) byte-for-byte; the port's files are held
+// against that package's. vp8_write_partition0 writes partition 0 whole,
+// held against its Python writer in tests/test_torch_partition0.py.
 
 #include <cstdint>
 #include <cstring>
@@ -32,7 +32,7 @@ struct ProbaView {
 
 // Writes one block's coefficient tokens. levels: [16] zigzag.
 // Returns nz bit. If bw == nullptr, performs a dry-run (context only).
-static int PutCoeffs(BoolWriter* bw, const ProbaView& pv, int ptype, int ctx,
+static int PutCoeffs(BoolEncoder* bw, const ProbaView& pv, int ptype, int ctx,
                      const int32_t* lv, int first) {
   int last = -1;
   for (int i = 15; i >= first; --i) {
@@ -232,7 +232,7 @@ using namespace webptpu;
 extern "C" {
 
 // Writes the per-MB mode records (RFC 6386 §19.3) into a bool writer.
-static void write_mb_modes(BoolWriter* bw, const uint8_t* imodes,
+static void write_mb_modes(BoolEncoder* bw, const uint8_t* imodes,
                            const uint8_t* is_i4, const uint8_t* uvmode,
                            const uint8_t* skip, int use_skip, int skip_prob,
                            const uint8_t* bmode_prob, const int8_t* tree,
@@ -356,7 +356,7 @@ long vp8_write_partition0(int num_segments, const int32_t* seg_hdr,
                           const uint8_t* skip, const uint8_t* seg_map,
                           const uint8_t* bmode_prob, const int8_t* tree,
                           int mb_w, int mb_h, uint8_t* out, long cap) {
-  BoolWriter bw;
+  BoolEncoder bw;
   bw.put_bit(0x80, 0);  // colour space
   bw.put_bit(0x80, 0);  // clamp type
   if (num_segments > 1) {
@@ -432,7 +432,7 @@ long vp8_emit_tokens(const int32_t* levels, const int32_t* y2_levels,
                      int part_idx, int num_parts, uint8_t* out, long cap) {
   MBArrays a{levels, y2_levels, is_i4, skip, mb_w, mb_h, use_skip};
   ProbaView pv{proba};
-  BoolWriter bw;
+  BoolEncoder bw;
   std::vector<uint32_t> top_nz(mb_w, 0);
   std::vector<uint8_t> top_dc(mb_w, 0);
   for (int mb_y = 0; mb_y < mb_h; ++mb_y) {
@@ -450,7 +450,7 @@ long vp8_emit_tokens(const int32_t* levels, const int32_t* y2_levels,
         }
         continue;
       }
-      BoolWriter* target = mine ? &bw : nullptr;
+      BoolEncoder* target = mine ? &bw : nullptr;
       WalkMB(a, mb, &top_nz[mb_x], &left_nz, &top_dc[mb_x], &left_dc,
              [&](int ptype, int ctx, const int32_t* lv, int first) {
                if (target) return PutCoeffs(target, pv, ptype, ctx, lv, first);

@@ -1,9 +1,10 @@
 // VP8 encoder macroblock loop (native fast path).
 //
-// Ports webp_tpu_torch/lossy/encode.py's per-MB closed loop (VP8Encoder
-// _encode_mb/_pick_i4 + quant.py quantize_block/trellis_quantize_block +
-// cost.py residual_cost) bit-for-bit: the Python implementation is the
-// conformance oracle (tests/test_native_parity.py). Behavioral parity with
+// Ports the JAX package's per-MB closed loop (webp_tpu/lossy/encode.py
+// VP8Encoder, with its quantizer and trellis in lossy/quant.py and its
+// residual rate in lossy/cost.py) bit-for-bit: that Python loop is the
+// conformance oracle (tests/test_native_parity.py, and the port's files
+// against the package's). Behavioral parity with
 // the reference's serial encode loop (internal/lossy/encode.go,
 // encode_trellis.go TrellisQuantizeBlock, dsp/cost.go GetResidualCost).
 //
@@ -74,9 +75,10 @@ struct SQ {
   int32_t q[16], iq[16], bias[16], sharpen[16];
 };
 
-// quantize_block (quant.py:54): raster coeffs -> zigzag levels + raster
-// dequant. Returns the zigzag-position nonzero bitmask (bit n set iff
-// lv_zz[n] != 0), so callers get `last` and nz flags without rescanning.
+// Quantization (the JAX package's lossy/quant.py): raster coeffs -> zigzag
+// levels + raster dequant. Returns the zigzag-position nonzero bitmask
+// (bit n set iff lv_zz[n] != 0), so callers get `last` and nz flags
+// without rescanning.
 // All-int32 arithmetic is exact: the worst-case product is
 // |FWHT coeff|(<=16320) * iq(<=32768) + bias ~= 5.4e8 < 2^31.
 static uint32_t QuantizeBlock(const int32_t* coeffs, const SQ& sq, int first,
@@ -784,7 +786,7 @@ static int CheckMode(int mb_x, int mb_y, int mode) {
 }
 
 // ---------------------------------------------------------------------
-// Rate estimation (cost.py residual_cost / variable_level_cost).
+// Rate estimation (the JAX package's lossy/cost.py residual rate).
 // ---------------------------------------------------------------------
 #ifdef WEBPTPU_ENC_AVX2
 static inline int32_t HSum8(__m256i v) {
@@ -938,7 +940,7 @@ static int64_t UVRate(const int32_t (*lv)[16], const uint32_t* masks, int ch,
 }
 
 // ---------------------------------------------------------------------
-// Trellis quantization (quant.py trellis_quantize_block, Viterbi).
+// Trellis quantization (the JAX package's lossy/quant.py, Viterbi).
 // ---------------------------------------------------------------------
 // Returns the zigzag nonzero bitmask of out_zz (same convention as
 // QuantizeBlock).
@@ -1347,8 +1349,8 @@ void vp8_encode_mbs(
       int32_t i4_levels[16][16];
       int32_t work[17 * 21];
       if (i4_blocks && method >= 3 && i4_header_cap > 0) {
-        // The I4-vs-I16 split compares both totals at lam_mode (encode.py
-        // _encode_mb: i16_score_mode; reference encode_parallel.go:565).
+        // The I4-vs-I16 split compares both totals at lam_mode (the JAX
+        // package's i16_score_mode; reference encode_parallel.go:565).
         const int64_t i16_score_mode =
             i16_rate * Q.lam_mode + 256 * i16_disto;
         memcpy(work, B, sizeof(work));

@@ -1,4 +1,4 @@
-"""Device-side VP8 quantization (PyTorch), mirroring
+"""Device-side VP8 quantization (PyTorch), with the quantizers of
 webp_tpu_torch.lossy.quant. Counterpart of webp_tpu/ops/quant.py."""
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ QFIX = 17
 MAX_LEVEL = 2047
 
 # Per-frequency trellis distortion weights, zigzag order
-# (lossy/quant.py WEIGHT_TRELLIS; reference encode_trellis.go).
+# (reference encode_trellis.go).
 _WT = np.array([30, 27, 19, 11, 27, 24, 17, 10,
                 19, 17, 12, 8, 11, 10, 8, 6], np.float32)
 

@@ -3,7 +3,7 @@
 
 A 16-position dynamic program over 3 nonzero-context states with two
 candidate levels per position, score = rate * lambda + 256 * delta
-distortion (the host trellis of lossy/quant.py, after the Go reference's
+distortion (the native MB loop's trellis, after the Go reference's
 encode_trellis.go TrellisQuantizeBlock).
 
 The rates come from the static default probabilities (COEFFS_PROBA0), so

@@ -224,27 +224,16 @@ def host_tail(per_image, width: int, height: int, quality: int = 75,
               segments: int = 4, sns_strength: int = 50):
     """The host's entropy coding and frame assembly of the band encoders'
     per-image fields (assemble_from_sharded's dicts, levels unpacked)
-    for width x height frames. Returns the VP8 frames."""
-    from ..lossy import tables as T
+    for width x height frames: each a frame for the device tail's writer
+    (DeviceVP8Encoder.write). Returns the VP8 frames."""
     from ..lossy.device_encode import DeviceVP8Encoder
     from ..lossy.encode import LossyConfig
 
-    cfg = LossyConfig(quality=quality, segments=segments,
-                      sns_strength=sns_strength)
-    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
+    tail = DeviceVP8Encoder(width, height, LossyConfig(
+        quality=quality, segments=segments, sns_strength=sns_strength))
     blobs = []
     for d in per_image:
-        dummyY = np.zeros((mb_h * 16, mb_w * 16), np.uint8)
-        dummyU = np.zeros((mb_h * 8, mb_w * 8), np.uint8)
-        enc = DeviceVP8Encoder(dummyY, dummyU, dummyU, width, height, cfg)
-        enc.proba = T.COEFFS_PROBA0.copy()
-        enc.levels = d["lv24"].astype(np.int32).reshape(mb_h, mb_w, 24, 16)
-        enc.y2_levels = d["y2"].astype(np.int32).reshape(mb_h, mb_w, 16)
-        enc.imodes = d["imodes"].reshape(mb_h, mb_w, 16).copy()
-        enc.uvmode = d["uvmodes"].reshape(mb_h, mb_w)
-        enc.skip = d["skip"].reshape(mb_h, mb_w).copy()
-        enc.is_i4 = d["is_i4"].reshape(mb_h, mb_w).copy()
-        enc.apply_device_plan(d["seg_map"], d["seg_q"], d["seg_beta"],
-                              dq_uv=d.get("dq_uv"))
-        blobs.append(enc._finish_bitstream())
+        f = tail.frame(d["lv24"], d)
+        tail.install_plan(f, d)
+        blobs.append(tail.write(f))
     return blobs

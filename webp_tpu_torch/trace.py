@@ -14,14 +14,14 @@ shared no-op context manager, and carry() returns its function.
 The span names (fixed, so that metrics can cite them):
 
     encode                 encoder.encode, every backend
-      encode.plan          DeviceVP8Encoder construction, MB padding
+      encode.plan          MB padding, the host planes autofilter reads
       encode.upload        the image to the device
       device.program       the host's enqueue of the device program
       encode.fetch         the blocking copy of the blob to the host
       encode.unpack        unpack_output_blob
       tail                 DeviceVP8Encoder.finish, the host tail:
         tail.unpack, tail.plan, tail.probas, tail.tokens,
-        tail.partition0, tail.assemble
+        tail.partition0, tail.assemble (lossy/frame.py's writer)
       fallback             the exact host re-encode of an escape overflow
       encode.wrap          PSNR, LAST_STATS, the container
       lossless             lossless/encode.py encode_vp8l, encode_vp8l_argb:
