@@ -1,7 +1,8 @@
 """Partition 0 in one native call: the port's frame writer (lossy/frame.py
 partition0) against the reference's pure-Python writer on the same
 encoder fields, its retry when the first buffer is short, the `native`
-counter's crossings per image of the device path's host tail, and the
+counter's crossings per image of the device path's host tail (2: the
+tokens of every partition, then partition 0), and the
 host tail's one entry (DeviceVP8Encoder.finish) on every device path, on
 the CPU (no JAX program)."""
 
@@ -143,17 +144,21 @@ def device_fields():
 
 
 @pytest.mark.parametrize("partitions", [0, 2])
-def test_the_tail_crosses_into_native_code_2_plus_num_parts_times(
+def test_the_tail_crosses_into_native_code_twice_whatever_the_partitions(
         device_fields, partitions):
+    """One call codes the tokens of every partition, one writes
+    partition 0."""
     cfg = LossyConfig(partitions=partitions)
     saved = trace.counters()
     assert trace.COUNTERS["native"] is trace.NATIVE
+    assert trace.COUNTERS["frames"] is trace.FRAMES
     try:
         trace.reset_counters()
         assert trace.counters()["native"] == {"calls": 0}
         enc = DE.DeviceVP8Encoder(48, 32, cfg)
         enc.finish(device_fields)
-        assert trace.counters()["native"]["calls"] == 2 + (1 << partitions)
+        assert trace.counters()["native"]["calls"] == 2
+        assert trace.counters()["frames"] == {"packed": 1, "dense": 0}
         assert len(enc.token_sizes) == 1 << partitions
     finally:
         for name, g in saved.items():

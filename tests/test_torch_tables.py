@@ -324,8 +324,7 @@ def test_native_coder_is_the_ports_own_build():
     assert path == os.path.realpath(_build.lib_path("webp_enc"))
     assert path.startswith(os.path.realpath(_build.BUILD_DIR) + os.sep)
     assert "libwebptpu" not in path
-    for name in ("vp8_emit_tokens", "vp8_record_stats", "vp8_encode_mbs",
-                 "vp8_write_partition0"):
+    for name in ("vp8_code_frame", "vp8_encode_mbs", "vp8_write_partition0"):
         assert hasattr(lib, name)
     for lib, name, syms in ((api.get_vp8l(), "vp8l_enc",
                              ("vp8l_encode_entropy_image",

@@ -13,8 +13,7 @@ from webp_tpu_torch import trace
 from webp_tpu_torch.lossy import device_encode as DE
 from webp_tpu_torch.ops import cuda, decode as D, fastpath
 
-TAIL_STAGES = ["tail.unpack", "tail.plan", "tail.probas", "tail.tokens",
-               "tail.partition0", "tail.assemble"]
+TAIL_STAGES = ["tail.plan", "tail.code", "tail.partition0", "tail.assemble"]
 
 
 def _image(h, w, seed):

@@ -1,15 +1,16 @@
 """Device-accelerated lossy encode: the batched device program on the card
-(ops/fastpath.py) plus the host tail — level unpacking, the frame
-writer's native entropy coding and VP8 frame assembly (lossy/frame.py).
+(ops/fastpath.py) plus the host tail — the frame writer's native entropy
+coding, straight from the packed levels, and VP8 frame assembly
+(lossy/frame.py).
 Counterpart of webp_tpu/lossy/device_encode.py (its single-device batched
 path).
 
 The device returns each image's fields as one byte blob (BLOB_CHUNKS
-chunks); the host tail (DeviceVP8Encoder.finish) unpacks them, installs
-the device's segment plan into the frame header and entropy-codes the
-levels. encode_image runs one image; an image whose escape
-list overflowed the device's capacity is re-encoded by the exact host
-encoder (from host planes of the same import: sharp-YUV planes from the
+chunks); the host tail (DeviceVP8Encoder.finish) installs the device's
+segment plan into the frame header and entropy-codes the levels straight
+from their packed fields. encode_image runs one image; an image whose
+escape list overflowed the device's capacity is re-encoded by the exact
+host encoder (from host planes of the same import: sharp-YUV planes from the
 host converter sharpyuv/convert.py when the device imported with sharp
 YUV). encode_lossy_batch runs one batch; encode_lossy_stream pipelines a
 stream of batches (upload, compute and host tail overlapped), or, when
@@ -96,28 +97,29 @@ class DeviceVP8Encoder:
         self.part0_size, self.token_sizes, self.recY = 0, (), None
 
     def finish(self, out_i: dict) -> bytes:
-        """Host tail for one image's device fields: unpack the levels,
-        install the device's segment plan, entropy-code, assemble."""
-        from ..ops.fastpath import unpack_levels
-
+        """Host tail for one image's device fields: install the device's
+        segment plan, code the levels straight from their packed fields,
+        assemble."""
         with trace.span("tail"):
-            with trace.span("tail.unpack"):
-                lv24 = unpack_levels(out_i["packed"], out_i["esc_idx"],
-                                     out_i["esc_val"], out_i["esc_cnt"],
-                                     self.mb_w * self.mb_h)
-                f = self.frame(lv24, out_i)
+            f = self.frame(out_i)
             with trace.span("tail.plan"):
                 self.install_plan(f, out_i)
             return self.write(f)
 
-    def frame(self, lv24, fields) -> F.Frame:
-        """The frame of the device's levels lv24 [n_mb, 24, 16] and its
-        per-MB fields, without its plan (install_plan makes it)."""
+    def frame(self, fields) -> F.Frame:
+        """The frame of the device's per-MB fields, without its plan
+        (install_plan makes it). Its levels are the packed fields as the
+        device sent them, or, where fields holds "lv24" [n_mb, 24, 16]
+        (the band encoders' unpacked levels), those."""
+        dense = "lv24" in fields
         return F.Frame(
-            self.width, self.height, lv24.astype(np.int32),
-            fields["y2"].astype(np.int32), fields["imodes"],
-            fields["uvmodes"], fields["is_i4"], fields["skip"].copy(),
-            plan=None, filter_level=0, **F.cfg_fields(self.cfg))
+            self.width, self.height, fields["lv24"] if dense else None,
+            fields["y2"], fields["imodes"], fields["uvmodes"],
+            fields["is_i4"], fields["skip"].copy(), plan=None,
+            filter_level=0, packed=None if dense else tuple(
+                fields[k] for k in ("packed", "esc_idx", "esc_val",
+                                    "esc_cnt")),
+            **F.cfg_fields(self.cfg))
 
     def install_plan(self, f: F.Frame, fields) -> None:
         """The frame's plan: where the device segmented (more than one
@@ -142,13 +144,11 @@ class DeviceVP8Encoder:
 
     def write(self, f: F.Frame) -> bytes:
         """The frame's bytes, in the device tail's order: the
-        probabilities, the token partitions, the autofilter search on
+        probabilities and the token partitions, the autofilter search on
         their probe decode (cfg.autofilter), partition 0, the assembly."""
         F.count_skips(f)
-        with trace.span("tail.probas"):
-            F.code_probas(f)
-        with trace.span("tail.tokens"):
-            parts = F.token_partitions(f)
+        with trace.span("tail.code"):
+            parts = F.code_tokens(f)
         if self.cfg.autofilter:
             self.recY = _probe_autofilter(f, parts, self.srcY)
         with trace.span("tail.partition0"):

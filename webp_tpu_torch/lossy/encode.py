@@ -144,7 +144,7 @@ class VP8Encoder:
             F.count_skips(f)
             if self.cfg.autofilter:
                 F.autofilter_search(f, self.recY, self.srcY)
-            F.code_probas(f)
+            parts = F.code_tokens(f)
             part0 = F.partition0(f)
             if len(part0) < (1 << 19):
                 break
@@ -154,6 +154,5 @@ class VP8Encoder:
             if self.i4_header_cap <= 0:
                 raise WebPError("partition 0 overflow")
             self.i4_header_cap >>= 1
-        parts = F.token_partitions(f)
         self.part0_size, self.token_sizes = len(part0), tuple(map(len, parts))
         return F.assemble(f, part0, parts)

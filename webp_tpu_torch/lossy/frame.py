@@ -6,8 +6,9 @@ MB loop (lossy/encode.py VP8Encoder), the device program's host tail
 (parallel/exact.py). Each fills a Frame and calls, in its own order:
 
     count_skips       the skip flag's probability
-    code_probas       the coefficient probabilities (native statistics)
-    token_partitions  the token partitions (native emission)
+    code_tokens       the coefficient probabilities and the token
+                      partitions (one native call, from the dense levels
+                      or straight from the device's packed ones)
     partition0        the header, probability updates and modes (native)
     assemble          the frame tag, the partition sizes, the partitions
 
@@ -22,20 +23,23 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import trace
 from ..native import api as native
 from . import dsp
 from . import tables as T
 from .analysis import SegmentPlan, _filter_strength_from_delta
-from .cost import bit_cost
 
 
 @dataclass
 class Frame:
     """A keyframe's fields. The per-MB arrays are in raster order of the
-    macroblocks (a leading [n_mb] or [mb_h, mb_w]): levels int32 [.., 24,
-    16] (16 luma, 4 U and 4 V blocks, zigzag order), y2_levels int32 [..,
-    16], imodes uint8 [.., 16] (an I16 MB's mode in column 0), uvmode
-    uint8, is_i4 and skip bool. The segment map is the plan's."""
+    macroblocks (a leading [n_mb] or [mb_h, mb_w]): y2_levels [.., 16]
+    and the levels, either dense, levels [.., 24, 16] (16 luma, 4 U and 4
+    V blocks, zigzag order), or as the device packs them, packed =
+    (packed u8 [n_mb, 24, 8], esc_idx i32 [K], esc_val i16 [K, 16],
+    esc_cnt) (ops/fastpath.py _pack_levels) with levels None; imodes
+    uint8 [.., 16] (an I16 MB's mode in column 0), uvmode uint8, is_i4
+    and skip bool. The segment map is the plan's."""
 
     width: int
     height: int
@@ -50,8 +54,9 @@ class Frame:
     filter_sharpness: int
     filter_level: int
     num_parts: int
-    proba: np.ndarray = None  # [4, 8, 3, 11], set by code_probas
+    proba: np.ndarray = None  # [4, 8, 3, 11], set by code_tokens
     skip_proba: int = 0       # set by count_skips; 0: no MB is skipped
+    packed: tuple = None      # the device's packed levels, or None
 
     @property
     def mb_w(self) -> int:
@@ -79,42 +84,18 @@ def count_skips(f: Frame) -> None:
                     if n_skip else 0)
 
 
-def code_probas(f: Frame) -> None:
-    """The coefficient probabilities (encode_proba.go optimizeProba): each
+def code_tokens(f: Frame) -> list:
+    """The coefficient probabilities (encode_proba.go optimizeProba: each
     entry of COEFFS_PROBA0 whose update, signalled at its cost, codes the
-    frame's tokens in fewer bits."""
-    stats = native.record_stats(f.levels, f.y2_levels, f.is_i4, f.skip,
-                                f.mb_w, f.mb_h, f.skip_proba > 0)
-    proba = T.COEFFS_PROBA0.copy()
-    upd = T.COEFFS_UPDATE_PROBA
-    for t in range(4):
-        for b in range(8):
-            for c in range(3):
-                for pi in range(11):
-                    n0, n1 = int(stats[t, b, c, pi, 0]), int(stats[t, b, c, pi, 1])
-                    total = n0 + n1
-                    if total == 0:
-                        continue
-                    old_p = int(proba[t, b, c, pi])
-                    new_p = 255 - n1 * 255 // total if n1 else 255
-                    new_p = max(1, min(255, new_p))
-                    up = int(upd[t, b, c, pi])
-                    old_cost = (n1 * bit_cost(1, old_p) + n0 * bit_cost(0, old_p)
-                                + bit_cost(0, up))
-                    new_cost = (n1 * bit_cost(1, new_p) + n0 * bit_cost(0, new_p)
-                                + bit_cost(1, up) + 8 * 256)
-                    if new_cost < old_cost:
-                        proba[t, b, c, pi] = new_p
-    f.proba = proba
-
-
-def token_partitions(f: Frame) -> list:
-    """The token partitions, one native call each (MB row r goes to
-    partition r mod num_parts)."""
-    return [native.emit_tokens(f.levels, f.y2_levels, f.is_i4, f.skip,
-                               f.proba, f.mb_w, f.mb_h, f.skip_proba > 0, i,
-                               f.num_parts)
-            for i in range(f.num_parts)]
+    frame's tokens in fewer bits), set as f.proba, and the token
+    partitions they code (MB row r in partition r mod num_parts): one
+    native call, which walks f.packed where the frame holds the device's
+    packed levels, else the dense f.levels. Counted in trace.FRAMES."""
+    trace.count(trace.FRAMES, "dense" if f.packed is None else "packed")
+    f.proba, parts = native.code_frame(
+        f.is_i4, f.skip, f.mb_w, f.mb_h, f.skip_proba > 0, f.num_parts,
+        levels=f.levels, y2_levels=f.y2_levels, packed=f.packed)
+    return parts
 
 
 def partition0(f: Frame) -> bytes:

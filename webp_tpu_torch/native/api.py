@@ -1,7 +1,7 @@
 """ctypes bindings for the port's three native libraries.
 
-The encoder side (get()): partition 0 in one call, token emission,
-statistics (lossy/frame.py), the closed-loop MB encode and the analysis
+The encoder side (get()): a frame's tokens and partition 0, one call
+each (lossy/frame.py), the closed-loop MB encode and the analysis
 alphas (lossy/encode.py, the host backend and the escape-overflow
 fallback), the RGB -> YUV 4:2:0 importer and an elementwise powf;
 sources native/src/vp8_enc.cc, vp8_enc_loop.cc, yuv_import.cc,
@@ -41,16 +41,10 @@ def _setup(lib):
         + [ct.c_int] * 2 + [ct.c_void_p] * 7 + [ct.c_int] * 2
         + [ct.c_void_p, ct.c_long])
     lib.vp8_write_partition0.restype = ct.c_long
-    lib.vp8_emit_tokens.argtypes = [
-        ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-        ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
-        ct.c_long,
-    ]
-    lib.vp8_emit_tokens.restype = ct.c_long
-    lib.vp8_record_stats.argtypes = [
-        ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-        ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
-    ]
+    lib.vp8_code_frame.argtypes = (
+        [ct.c_void_p] * 4 + [ct.c_int] + [ct.c_void_p] * 3 + [ct.c_int] * 4
+        + [ct.c_void_p] * 6 + [ct.c_long])
+    lib.vp8_code_frame.restype = ct.c_long
     lib.vp8_encode_mbs.argtypes = [ct.c_void_p] * 3 + [ct.c_int] * 2 + \
         [ct.c_void_p] * 8 + [ct.c_int, ct.c_int, ct.c_int64] + \
         [ct.c_void_p] * 9
@@ -151,38 +145,84 @@ def write_partition0(num_segments: int, seg_quant, seg_fstrength,
     raise RuntimeError("native partition 0: the retry's buffer was short")
 
 
-def emit_tokens(levels: np.ndarray, y2_levels: np.ndarray, is_i4: np.ndarray,
-                skip: np.ndarray, proba: np.ndarray, mb_w: int, mb_h: int,
-                use_skip: bool, part_idx: int, num_parts: int) -> bytes:
-    lib = get()
-    levels = np.ascontiguousarray(levels, dtype=np.int32)
-    y2 = np.ascontiguousarray(y2_levels, dtype=np.int32)
-    i4 = np.ascontiguousarray(is_i4, dtype=np.uint8)
-    sk = np.ascontiguousarray(skip, dtype=np.uint8)
-    pr = np.ascontiguousarray(proba, dtype=np.uint8)
-    cap = levels.size * 4 + 65536
-    out = np.zeros(cap, dtype=np.uint8)
-    trace.count(trace.NATIVE, "calls")
-    n = lib.vp8_emit_tokens(_ptr(levels), _ptr(y2), _ptr(i4), _ptr(sk),
-                            _ptr(pr), mb_w, mb_h, int(use_skip), part_idx,
-                            num_parts, _ptr(out), cap)
-    if n < 0:
-        raise RuntimeError("native token emission overflow")
-    return bytes(out[:n].tobytes())
+@functools.lru_cache(maxsize=None)
+def _proba_tables():
+    """The tables the coefficient probabilities are chosen by:
+    COEFFS_PROBA0 and COEFFS_UPDATE_PROBA as uint8, ENTROPY_COST as
+    int32 (lossy/cost.py bit_cost)."""
+    from ..lossy import cost as C
+
+    p0, upd = _enc_tables()[:2]
+    return p0, upd, np.ascontiguousarray(C.ENTROPY_COST, dtype=np.int32)
 
 
-def record_stats(levels, y2_levels, is_i4, skip, mb_w, mb_h,
-                 use_skip) -> np.ndarray:
+def _tokens_cap(n_mb: int) -> int:
+    """The first try's output buffer for a frame's token partitions: about
+    a nibble a coefficient, the packed levels' own size."""
+    return 4096 + 192 * n_mb
+
+
+def code_frame(is_i4, skip, mb_w: int, mb_h: int, use_skip: bool,
+               num_parts: int, levels=None, y2_levels=None, packed=None):
+    """One frame's coefficient tokens in one native call (vp8_code_frame
+    in native/src/vp8_enc.cc): the branch statistics, the coefficient
+    probabilities chosen from them and every token partition (MB row r
+    in partition r mod num_parts), from y2_levels [n_mb, 16] and the
+    levels: dense, levels [n_mb, 24, 16] (read as int32), or the device's
+    packed fields, packed = (packed u8 [n_mb, 24, 8], esc_idx i32 [K],
+    esc_val i16 [K, 16], esc_cnt) (y2_levels read as int16), decoded MB
+    by MB: no dense array is made. A buffer too small for the first try
+    (_tokens_cap) is retried once at the size the call reports.
+    Returns (the probabilities u8 [4, 8, 3, 11], the partitions' bytes).
+    Raises ValueError on fields of another size or an escape list out of
+    order, out of range or longer than its blocks."""
     lib = get()
-    levels = np.ascontiguousarray(levels, dtype=np.int32)
-    y2 = np.ascontiguousarray(y2_levels, dtype=np.int32)
-    i4 = np.ascontiguousarray(is_i4, dtype=np.uint8)
-    sk = np.ascontiguousarray(skip, dtype=np.uint8)
-    stats = np.zeros((4, 8, 3, 11, 2), dtype=np.int64)
-    trace.count(trace.NATIVE, "calls")
-    lib.vp8_record_stats(_ptr(levels), _ptr(y2), _ptr(i4), _ptr(sk),
-                         mb_w, mb_h, int(use_skip), _ptr(stats))
-    return stats
+    p0, upd, ec = _proba_tables()
+    n_mb = mb_w * mb_h
+    i4, sk = _u8(is_i4), _u8(skip)
+    if packed is None:
+        lv = np.ascontiguousarray(levels, dtype=np.int32)
+        y2 = np.ascontiguousarray(y2_levels, dtype=np.int32)
+        src = (_ptr(lv), None, None, None, 0)
+        ok = lv.size == 384 * n_mb
+    else:
+        pk, idx, val, cnt = packed
+        pk = _u8(pk)
+        idx = np.ascontiguousarray(idx, dtype=np.int32)
+        val = np.ascontiguousarray(val, dtype=np.int16)
+        y2 = np.ascontiguousarray(y2_levels, dtype=np.int16)
+        cnt = int(cnt)
+        if not 0 <= cnt <= min(idx.size, val.size // 16):
+            raise ValueError(f"code_frame: {cnt} escaped blocks, room for "
+                             f"{min(idx.size, val.size // 16)}")
+        src = (None, _ptr(pk), _ptr(idx), _ptr(val), cnt)
+        ok = pk.size == 192 * n_mb
+    if (not ok or y2.size != 16 * n_mb or i4.size != n_mb
+            or sk.size != n_mb or num_parts not in (1, 2, 4, 8)):
+        raise ValueError("code_frame: field sizes do not match "
+                         f"{mb_w}x{mb_h} macroblocks and {num_parts} "
+                         "partitions")
+    proba = np.empty((4, 8, 3, 11), dtype=np.uint8)
+    sizes = np.empty(num_parts, dtype=np.int64)
+    cap = _tokens_cap(n_mb)
+    for _ in range(2):
+        out = np.empty(cap, dtype=np.uint8)
+        trace.count(trace.NATIVE, "calls")
+        n = lib.vp8_code_frame(
+            *src, _ptr(y2), _ptr(i4), _ptr(sk), int(mb_w), int(mb_h),
+            int(bool(use_skip)), int(num_parts), _ptr(p0), _ptr(upd),
+            _ptr(ec), _ptr(proba), _ptr(sizes), _ptr(out), cap)
+        if n == -1:
+            raise ValueError("code_frame: the escape list is out of order "
+                             "or out of range")
+        if n >= 0:
+            parts, o = [], 0
+            for size in sizes.tolist():
+                parts.append(out[o:o + size].tobytes())
+                o += size
+            return proba, parts
+        cap = -n
+    raise RuntimeError("native token coding: the retry's buffer was short")
 
 
 def vp8_encode_mbs(srcY, srcU, srcV, mb_w, mb_h, seg_map, quant, lambdas,

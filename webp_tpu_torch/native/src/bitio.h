@@ -37,18 +37,29 @@ struct BoolEncoder {
     }
   }
 
+  // The RFC's bit-at-a-time renormalization done in one step, without a
+  // branch on the bit: the range's leading zeros give the shifts (0 when
+  // range >= 128); at most one byte completes within them, and only the
+  // shift that completes it can carry out of bit 31 (bottom holds at most
+  // 24 bits after a byte leaves and gains under 2^8 before each shift).
+  // The same bytes as shift_once a shift at a time.
   inline void put_bit(int prob, int bit) {
-    uint32_t split = 1 + (((range - 1) * (uint32_t)prob) >> 8);
-    if (bit) {
-      bottom += split;
-      range -= split;
-    } else {
-      range = split;
+    const uint32_t split = 1 + (((range - 1) * (uint32_t)prob) >> 8);
+    const uint32_t mask = 0u - (uint32_t)(bit != 0);
+    bottom += split & mask;
+    range = ((range - split) & mask) | (split & ~mask);
+    int shift = __builtin_clz(range) - 24;
+    range <<= shift;
+    if (shift >= bit_count) {
+      const int offset = bit_count;
+      if ((bottom << (offset - 1)) & 0x80000000u) carry();
+      buf.push_back((uint8_t)(bottom >> (24 - offset)));
+      bottom = (bottom << offset) & 0xFFFFFF;
+      shift -= offset;
+      bit_count = 8;
     }
-    while (range < 128) {
-      range <<= 1;
-      shift_once();
-    }
+    bottom <<= shift;
+    bit_count -= shift;
   }
 
   inline void put_bits(uint32_t value, int n) {

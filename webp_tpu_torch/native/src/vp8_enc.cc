@@ -1,9 +1,11 @@
 // VP8 encoder host-side entropy coding (native fast path).
 //
-// Mirrors the JAX package's token writer and stats recorder
-// (webp_tpu/lossy/encode.py) byte-for-byte; the port's files are held
-// against that package's. vp8_write_partition0 writes partition 0 whole,
-// held against its Python writer in tests/test_torch_partition0.py.
+// Mirrors the JAX package's token writer, stats recorder and probability
+// rule (webp_tpu/lossy/encode.py) byte-for-byte; the port's files are held
+// against that package's. vp8_code_frame codes a frame's tokens in one
+// call, from dense levels or straight from the device's packed ones;
+// vp8_write_partition0 writes partition 0 whole, held against its Python
+// writer in tests/test_torch_partition0.py.
 
 #include <cstdint>
 #include <cstring>
@@ -30,24 +32,24 @@ struct ProbaView {
   }
 };
 
+// The index of a block's last non-zero level at or after first, or -1.
+static inline int LastNonZero(const int32_t* lv, int first) {
+  for (int i = 15; i >= first; --i)
+    if (lv[i]) return i;
+  return -1;
+}
+
 // Writes one block's coefficient tokens. levels: [16] zigzag.
-// Returns nz bit. If bw == nullptr, performs a dry-run (context only).
+// Returns nz bit.
 static int PutCoeffs(BoolEncoder* bw, const ProbaView& pv, int ptype, int ctx,
                      const int32_t* lv, int first) {
-  int last = -1;
-  for (int i = 15; i >= first; --i) {
-    if (lv[i]) {
-      last = i;
-      break;
-    }
-  }
+  const int last = LastNonZero(lv, first);
   int n = first;
   const uint8_t* p = pv.at(ptype, kBands[n], ctx);
   if (last < first) {
-    if (bw) bw->put_bit(p[0], 0);
+    bw->put_bit(p[0], 0);
     return 0;
   }
-  if (!bw) return 1;
   while (n <= last) {
     bw->put_bit(p[0], 1);
     while (lv[n] == 0) {
@@ -111,13 +113,7 @@ static int RecordCoeffs(int64_t* stats, int ptype, int ctx, const int32_t* lv,
   auto S = [&](int b, int c, int pi, int bit) {
     stats[(((ptype * 8 + b) * 3 + c) * 11 + pi) * 2 + bit]++;
   };
-  int last = -1;
-  for (int i = 15; i >= first; --i) {
-    if (lv[i]) {
-      last = i;
-      break;
-    }
-  }
+  const int last = LastNonZero(lv, first);
   int n = first;
   if (last < first) {
     S(kBands[n], ctx, 0, 0);
@@ -164,25 +160,19 @@ static int RecordCoeffs(int64_t* stats, int ptype, int ctx, const int32_t* lv,
   return 1;
 }
 
-struct MBArrays {
-  const int32_t* levels;     // [nmb][24][16]
-  const int32_t* y2_levels;  // [nmb][16]
-  const uint8_t* is_i4;      // [nmb]
-  const uint8_t* skip;       // [nmb]
-  int mb_w, mb_h, use_skip;
-};
-
-// One MB's tokens; updates contexts. bw==nullptr -> dry run.
+// One MB's blocks in coding order (Y2 for an I16 MB, the 16 luma, the 4
+// U and 4 V blocks) through block(ptype, ctx, levels, first), which
+// returns the block's nz bit; updates the non-zero contexts. lv: the MB's
+// [24][16] levels, y2: its [16] Y2 levels (read for an I16 MB only).
 template <typename FN>
-static void WalkMB(const MBArrays& a, int mb, uint32_t* tnz_io,
-                   uint32_t* lnz_io, uint8_t* tdc_io, uint8_t* ldc_io,
-                   FN&& block) {
-  const int32_t* lv = a.levels + (size_t)mb * 24 * 16;
+static void WalkMB(const int32_t* lv, const int32_t* y2, bool i4,
+                   uint32_t* tnz_io, uint32_t* lnz_io, uint8_t* tdc_io,
+                   uint8_t* ldc_io, FN&& block) {
   uint32_t tnz_in = *tnz_io, lnz_in = *lnz_io;
   int first, ptype;
-  if (!a.is_i4[mb]) {
+  if (!i4) {
     int ctx = *tdc_io + *ldc_io;
-    int nz = block(1, ctx, a.y2_levels + (size_t)mb * 16, 0);
+    int nz = block(1, ctx, y2, 0);
     *tdc_io = *ldc_io = (uint8_t)nz;
     first = 1;
     ptype = 0;
@@ -223,6 +213,171 @@ static void WalkMB(const MBArrays& a, int mb, uint32_t* tnz_io,
   }
   *tnz_io = out_tnz;
   *lnz_io = out_lnz;
+}
+
+// Every MB of the frame in raster order through mb_fn(mb, mb_y, and the
+// MB's top and left non-zero contexts, which the token walk keeps); an MB
+// skipped under use_skip resets them and is not visited.
+template <typename FN>
+static void WalkFrame(const uint8_t* is_i4, const uint8_t* skip, int mb_w,
+                      int mb_h, int use_skip, FN&& mb_fn) {
+  std::vector<uint32_t> top_nz(mb_w, 0);
+  std::vector<uint8_t> top_dc(mb_w, 0);
+  for (int mb_y = 0; mb_y < mb_h; ++mb_y) {
+    uint32_t left_nz = 0;
+    uint8_t left_dc = 0;
+    for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
+      int mb = mb_y * mb_w + mb_x;
+      if (use_skip && skip[mb]) {
+        left_nz = 0;
+        top_nz[mb_x] = 0;
+        if (!is_i4[mb]) {
+          left_dc = 0;
+          top_dc[mb_x] = 0;
+        }
+        continue;
+      }
+      mb_fn(mb, mb_y, &top_nz[mb_x], &left_nz, &top_dc[mb_x], &left_dc);
+    }
+  }
+}
+
+// Dense levels: int32 [n_mb][24][16] and Y2 levels int32 [n_mb][16].
+struct DenseLevels {
+  const int32_t* levels;
+  const int32_t* y2;
+  const int32_t* mb(int m) { return levels + (size_t)m * 384; }
+  const int32_t* mb_y2(int m) { return y2 + (size_t)m * 16; }
+  void rewind() {}
+};
+
+// A byte of the device's packed levels as its two levels: nibble n is
+// n - 8, nibble 0 (an escaped coefficient) is 0.
+struct NibblePairs {
+  int32_t v[256][2];
+  NibblePairs() {
+    for (int b = 0; b < 256; ++b) {
+      int lo = b & 15, hi = b >> 4;
+      v[b][0] = lo ? lo - 8 : 0;
+      v[b][1] = hi ? hi - 8 : 0;
+    }
+  }
+};
+static const NibblePairs kNibbles;
+
+// The device's packed levels (ops/fastpath.py _pack_levels): packed u8
+// [n_mb][24][8], two levels a byte, low nibble first; the blocks whose
+// indices esc_idx[0..esc_cnt) lists (ascending) take their 16 levels from
+// esc_val [.][16] instead; Y2 levels int16 [n_mb][16]. Each MB is decoded
+// when visited, into one MB's buffer; the escape cursor follows the
+// raster walk and rewind() restarts it for the next walk.
+struct PackedLevels {
+  const uint8_t* packed;
+  const int32_t* esc_idx;
+  const int16_t* esc_val;
+  int esc_cnt;
+  const int16_t* y2;
+  int cursor = 0;
+  int32_t lv[384];
+  int32_t lv_y2[16];
+
+  const int32_t* mb(int m) {
+    const uint8_t* p = packed + (size_t)m * 192;
+    for (int i = 0; i < 192; ++i) memcpy(lv + 2 * i, kNibbles.v[p[i]], 8);
+    const int first = m * 24, end = first + 24;
+    while (cursor < esc_cnt && esc_idx[cursor] < first) ++cursor;
+    for (; cursor < esc_cnt && esc_idx[cursor] < end; ++cursor) {
+      const int16_t* v = esc_val + (size_t)cursor * 16;
+      int32_t* d = lv + (esc_idx[cursor] - first) * 16;
+      for (int k = 0; k < 16; ++k) d[k] = v[k];
+    }
+    return lv;
+  }
+  const int32_t* mb_y2(int m) {
+    const int16_t* v = y2 + (size_t)m * 16;
+    for (int k = 0; k < 16; ++k) lv_y2[k] = v[k];
+    return lv_y2;
+  }
+  void rewind() { cursor = 0; }
+};
+
+constexpr int kNumProbas = 4 * 8 * 3 * 11;
+
+// The frame's coefficient probabilities from its branch statistics
+// [kNumProbas][2] (encode_proba.go optimizeProba): an entry of proba0
+// takes n1 / total's probability where that update, signalled at its
+// cost under update_proba and 8 bits, codes the entry's bits in fewer
+// bits than proba0 does.
+static void OptimizeProbas(const int64_t* stats, const uint8_t* proba0,
+                           const uint8_t* update_proba,
+                           const int32_t* entropy_cost, uint8_t* proba) {
+  auto cost = [&](int bit, int p) -> int64_t {
+    return entropy_cost[bit ? 255 - p : p];
+  };
+  for (int i = 0; i < kNumProbas; ++i) {
+    proba[i] = proba0[i];
+    const int64_t n0 = stats[2 * i], n1 = stats[2 * i + 1];
+    const int64_t total = n0 + n1;
+    if (total == 0) continue;
+    const int old_p = proba0[i], up = update_proba[i];
+    int new_p = n1 ? (int)(255 - n1 * 255 / total) : 255;
+    new_p = new_p < 1 ? 1 : (new_p > 255 ? 255 : new_p);
+    const int64_t old_cost =
+        n1 * cost(1, old_p) + n0 * cost(0, old_p) + cost(0, up);
+    const int64_t new_cost = n1 * cost(1, new_p) + n0 * cost(0, new_p) +
+                             cost(1, up) + 8 * 256;
+    if (new_cost < old_cost) proba[i] = (uint8_t)new_p;
+  }
+}
+
+// The frame's statistics, probabilities and token partitions from the
+// levels src gives (DenseLevels or PackedLevels): MB row r goes to
+// partition r mod num_parts. Returns the partitions' total bytes and
+// their sizes in part_sizes, or minus that total (nothing copied) when
+// it exceeds cap.
+template <typename Levels>
+static long CodeFrame(Levels& src, const uint8_t* is_i4, const uint8_t* skip,
+                      int mb_w, int mb_h, int use_skip, int num_parts,
+                      const uint8_t* proba0, const uint8_t* update_proba,
+                      const int32_t* entropy_cost, uint8_t* proba,
+                      int64_t* part_sizes, uint8_t* out, long cap) {
+  std::vector<int64_t> stats(kNumProbas * 2, 0);
+  WalkFrame(is_i4, skip, mb_w, mb_h, use_skip,
+            [&](int mb, int, uint32_t* tnz, uint32_t* lnz, uint8_t* tdc,
+                uint8_t* ldc) {
+              WalkMB(src.mb(mb), src.mb_y2(mb), is_i4[mb], tnz, lnz, tdc,
+                     ldc,
+                     [&](int ptype, int ctx, const int32_t* lv, int first) {
+                       return RecordCoeffs(stats.data(), ptype, ctx, lv,
+                                           first);
+                     });
+            });
+  OptimizeProbas(stats.data(), proba0, update_proba, entropy_cost, proba);
+  src.rewind();
+  ProbaView pv{proba};
+  std::vector<BoolEncoder> bws(num_parts);
+  WalkFrame(is_i4, skip, mb_w, mb_h, use_skip,
+            [&](int mb, int mb_y, uint32_t* tnz, uint32_t* lnz, uint8_t* tdc,
+                uint8_t* ldc) {
+              BoolEncoder* bw = &bws[mb_y & (num_parts - 1)];
+              WalkMB(src.mb(mb), src.mb_y2(mb), is_i4[mb], tnz, lnz, tdc,
+                     ldc,
+                     [&](int ptype, int ctx, const int32_t* lv, int first) {
+                       return PutCoeffs(bw, pv, ptype, ctx, lv, first);
+                     });
+            });
+  long total = 0;
+  for (int k = 0; k < num_parts; ++k) {
+    bws[k].finish();
+    part_sizes[k] = (int64_t)bws[k].buf.size();
+    total += (long)bws[k].buf.size();
+  }
+  if (total > cap) return -total;
+  for (auto& bw : bws) {
+    memcpy(out, bw.buf.data(), bw.buf.size());
+    out += bw.buf.size();
+  }
+  return total;
 }
 
 }  // namespace webptpu
@@ -425,76 +580,43 @@ long vp8_write_partition0(int num_segments, const int32_t* seg_hdr,
   return n;
 }
 
-// Emits one token partition. Returns byte count or -1 on overflow.
-long vp8_emit_tokens(const int32_t* levels, const int32_t* y2_levels,
-                     const uint8_t* is_i4, const uint8_t* skip,
-                     const uint8_t* proba, int mb_w, int mb_h, int use_skip,
-                     int part_idx, int num_parts, uint8_t* out, long cap) {
-  MBArrays a{levels, y2_levels, is_i4, skip, mb_w, mb_h, use_skip};
-  ProbaView pv{proba};
-  BoolEncoder bw;
-  std::vector<uint32_t> top_nz(mb_w, 0);
-  std::vector<uint8_t> top_dc(mb_w, 0);
-  for (int mb_y = 0; mb_y < mb_h; ++mb_y) {
-    bool mine = (mb_y & (num_parts - 1)) == part_idx;
-    uint32_t left_nz = 0;
-    uint8_t left_dc = 0;
-    for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
-      int mb = mb_y * mb_w + mb_x;
-      if (use_skip && skip[mb]) {
-        left_nz = 0;
-        top_nz[mb_x] = 0;
-        if (!is_i4[mb]) {
-          left_dc = 0;
-          top_dc[mb_x] = 0;
-        }
-        continue;
-      }
-      BoolEncoder* target = mine ? &bw : nullptr;
-      WalkMB(a, mb, &top_nz[mb_x], &left_nz, &top_dc[mb_x], &left_dc,
-             [&](int ptype, int ctx, const int32_t* lv, int first) {
-               if (target) return PutCoeffs(target, pv, ptype, ctx, lv, first);
-               // Dry run: nz only.
-               for (int i = 15; i >= first; --i)
-                 if (lv[i]) return 1;
-               return 0;
-             });
-    }
+// Codes one frame's coefficient tokens in one call: records the branch
+// statistics, writes the coefficient probabilities [4][8][3][11] into
+// proba (OptimizeProbas against proba0, update_proba and entropy_cost
+// [256]) and emits every token partition with them, MB row r into
+// partition r mod num_parts (a power of 2), their sizes into part_sizes
+// [num_parts] and their bytes, one after another, into out. The levels
+// are dense (levels int32 [n_mb][24][16], y2 int32 [n_mb][16]; packed
+// null) or the device's packed fields (packed u8 [n_mb][24][8], esc_idx
+// int32 and esc_val int16 [esc_cnt][16] the escaped blocks in ascending
+// block order, y2 int16 [n_mb][16]; levels null). Returns the bytes
+// written; minus the bytes needed (nothing copied) when they exceed cap;
+// -1 when the escape list is out of order or out of range.
+long vp8_code_frame(const int32_t* levels, const uint8_t* packed,
+                    const int32_t* esc_idx, const int16_t* esc_val,
+                    int esc_cnt, const void* y2, const uint8_t* is_i4,
+                    const uint8_t* skip, int mb_w, int mb_h, int use_skip,
+                    int num_parts, const uint8_t* proba0,
+                    const uint8_t* update_proba, const int32_t* entropy_cost,
+                    uint8_t* proba, int64_t* part_sizes, uint8_t* out,
+                    long cap) {
+  if (!packed) {
+    DenseLevels src{levels, (const int32_t*)y2};
+    return CodeFrame(src, is_i4, skip, mb_w, mb_h, use_skip, num_parts,
+                     proba0, update_proba, entropy_cost, proba, part_sizes,
+                     out, cap);
   }
-  bw.finish();
-  long n = (long)bw.buf.size();
-  if (n > cap) return -1;
-  memcpy(out, bw.buf.data(), n);
-  return n;
-}
-
-// Records branch statistics over all MBs: stats [4][8][3][11][2] int64.
-void vp8_record_stats(const int32_t* levels, const int32_t* y2_levels,
-                      const uint8_t* is_i4, const uint8_t* skip, int mb_w,
-                      int mb_h, int use_skip, int64_t* stats) {
-  MBArrays a{levels, y2_levels, is_i4, skip, mb_w, mb_h, use_skip};
-  std::vector<uint32_t> top_nz(mb_w, 0);
-  std::vector<uint8_t> top_dc(mb_w, 0);
-  for (int mb_y = 0; mb_y < mb_h; ++mb_y) {
-    uint32_t left_nz = 0;
-    uint8_t left_dc = 0;
-    for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
-      int mb = mb_y * mb_w + mb_x;
-      if (use_skip && skip[mb]) {
-        left_nz = 0;
-        top_nz[mb_x] = 0;
-        if (!is_i4[mb]) {
-          left_dc = 0;
-          top_dc[mb_x] = 0;
-        }
-        continue;
-      }
-      WalkMB(a, mb, &top_nz[mb_x], &left_nz, &top_dc[mb_x], &left_dc,
-             [&](int ptype, int ctx, const int32_t* lv, int first) {
-               return RecordCoeffs(stats, ptype, ctx, lv, first);
-             });
-    }
+  const long n_blocks = (long)mb_w * mb_h * 24;
+  if (esc_cnt < 0) return -1;
+  for (int k = 0; k < esc_cnt; ++k) {
+    if (esc_idx[k] < 0 || esc_idx[k] >= n_blocks ||
+        (k && esc_idx[k] <= esc_idx[k - 1]))
+      return -1;
   }
+  PackedLevels src{packed, esc_idx, esc_val, esc_cnt, (const int16_t*)y2};
+  return CodeFrame(src, is_i4, skip, mb_w, mb_h, use_skip, num_parts,
+                   proba0, update_proba, entropy_cost, proba, part_sizes,
+                   out, cap);
 }
 
 }  // extern "C"

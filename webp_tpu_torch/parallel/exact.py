@@ -233,7 +233,7 @@ def host_tail(per_image, width: int, height: int, quality: int = 75,
         quality=quality, segments=segments, sns_strength=sns_strength))
     blobs = []
     for d in per_image:
-        f = tail.frame(d["lv24"], d)
+        f = tail.frame(d)
         tail.install_plan(f, d)
         blobs.append(tail.write(f))
     return blobs

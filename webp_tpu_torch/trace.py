@@ -20,8 +20,9 @@ The span names (fixed, so that metrics can cite them):
       encode.fetch         the blocking copy of the blob to the host
       encode.unpack        unpack_output_blob
       tail                 DeviceVP8Encoder.finish, the host tail:
-        tail.unpack, tail.plan, tail.probas, tail.tokens,
-        tail.partition0, tail.assemble (lossy/frame.py's writer)
+        tail.plan, tail.code (the probabilities and token partitions,
+        one native call), tail.partition0, tail.assemble
+        (lossy/frame.py's writer)
       fallback             the exact host re-encode of an escape overflow
       encode.wrap          PSNR, LAST_STATS, the container
       lossless             lossless/encode.py encode_vp8l, encode_vp8l_argb:
@@ -60,9 +61,10 @@ lossless predictor search copy to and from a CUDA device}),
 "candidates": transform configurations encoded in full, "entropy_calls",
 "entropy_pixels": the native entropy coder's calls and their pixels}) and
 "native" ({"calls": calls into the native encoder library through
-native/api.py's wrappers, each a GIL hand-off: partition 0, token
-emission, statistics, the host MB loop, the analysis alphas, the YUV
-importer, powf}).
+native/api.py's wrappers, each a GIL hand-off: partition 0, a frame's
+tokens, the host MB loop, the analysis alphas, the YUV importer, powf})
+and "frames" (lossy/frame.py code_tokens: {"packed": frames coded
+straight from the device's packed levels, "dense": from dense levels}).
 """
 
 from __future__ import annotations
@@ -217,3 +219,4 @@ def reset_counters() -> None:
 PROGRAMS = register("programs", {"built": 0})
 BYTES = register("bytes", {"h2d": 0, "d2h": 0})
 NATIVE = register("native", {"calls": 0})
+FRAMES = register("frames", {"packed": 0, "dense": 0})
